@@ -1,9 +1,10 @@
 """Builds the CUDA sources under csrc/ with nvcc and loads them with ctypes.
 
-Each `csrc/<name>.cu` exports a plain C interface and compiles, at first
-use, into `_build/lib<name>-<hash>.so` beside this file (the directory is
-git-ignored). The hash covers the source and the flags, so an edited
-source builds anew and an unchanged one loads what is there.
+Each `csrc/<name>.cu` (ragged_dp, multi_dp) exports a plain C interface
+and compiles, at first use, into `_build/lib<name>-<hash>.so` beside this
+file (the directory is git-ignored). The hash covers the source and the
+flags, so an edited source builds anew and an unchanged one loads what is
+there.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("ragged_dp",)
+KERNELS = ("ragged_dp", "multi_dp")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 # asks ptxas for its register / spill report; the binary is the same
@@ -45,13 +46,15 @@ def _target(name: str) -> Path:
 
 
 def build_all(names=KERNELS, report: bool = False) -> dict:
-    """Compile every missing library, one nvcc per source.
+    """Compile every missing library, one nvcc per source, all started
+    together.
 
     Returns {name: {"seconds": build time (0.0 when already built),
     "log": nvcc's output, with ptxas's register report when `report`}}.
     """
     BUILD_DIR.mkdir(exist_ok=True)
-    out = {}
+    out, running = {}, {}
+    t0 = time.perf_counter()
     for name in names:
         so = _target(name)
         if so.exists():
@@ -60,13 +63,20 @@ def build_all(names=KERNELS, report: bool = False) -> dict:
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *FLAGS, *(REPORT_FLAGS if report else []),
                "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{r.stdout}{r.stderr}")
+        running[name] = (so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (so, tmp, proc) in running.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{log}")
+            continue
         os.replace(tmp, so)
         out[name] = {"seconds": time.perf_counter() - t0,
-                     "log": (r.stdout + r.stderr).strip()}
+                     "log": log.strip()}
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 

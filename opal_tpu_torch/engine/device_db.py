@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from . import kernels
 from .batching import Block, plan_blocks
@@ -31,10 +32,23 @@ class DeviceDatabase:
         self.stream = kernels.pack_stream(
             [b.letters for b in self.blocks],
             [b.lengths for b in self.blocks], block_size, device)
+        self._lane_indices = None
 
     @property
     def device(self):
         return self.stream.letters.device
+
+    @property
+    def lane_indices(self):
+        """[NB, B] int32 on the device: the DB index of each lane, -1 for
+        padding lanes (engine/ranked.py's selection key). Uploaded at
+        first use and kept."""
+        if self._lane_indices is None:
+            idx = np.full((len(self.blocks), self.block_size), -1, np.int32)
+            for bi, blk in enumerate(self.blocks):
+                idx[bi, :blk.n] = blk.indices
+            self._lane_indices = torch.from_numpy(idx).to(self.device)
+        return self._lane_indices
 
     def __len__(self) -> int:
         return self.n

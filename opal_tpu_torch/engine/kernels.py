@@ -1,4 +1,4 @@
-"""The ragged DP kernel, its plain PyTorch version, and their host helpers.
+"""The DP kernels, their plain PyTorch versions, and their host helpers.
 
 One query is scored against a whole resident database in one pass: every
 database sequence is one *lane*, lanes are grouped into length-sorted
@@ -7,12 +7,16 @@ recurrence over its own columns only. The CUDA kernel
 (csrc/ragged_dp.cu, `ragged_dp`) replaces opal_tpu's Pallas kernel
 `build_pallas_ragged_fn_raw` / `_kernel_body`
 (opal_tpu/engine/pallas_kernels.py:825-924, body :264-728) in all four
-modes at score and score+end depth.
+modes at score and score+end depth. The CUDA kernel csrc/multi_dp.cu
+(`multi_dp`) replaces `build_pallas_multi_fn_raw` / `_kernel_multi`
+(:1440-1521, body :1163-1437): up to MULTI_MAX_SEGS queries stacked as
+independent row segments, scored in one pass.
 
-`ragged_score` is the one entry point: it launches the kernel for CUDA
-tensors and runs `ragged_score_plain` for CPU tensors, and raises for
-anything else. Both return the same tracker rows, bit for bit; the
-semantics are those of opal_tpu's int32 twin (opal_tpu/engine/xla.py).
+`ragged_score` and `multi_score` are the entry points: each launches its
+kernel for CUDA tensors and runs its plain version (`ragged_score_plain`,
+`multi_score_plain`) for CPU tensors, and raises for anything else. Kernel
+and plain version return the same rows, bit for bit; the semantics are
+those of opal_tpu's int32 twin (opal_tpu/engine/xla.py).
 
 The kernel's input (`Stream`): block b's letters are the int8 bytes
 letters[offsets[b]:offsets[b+1]], laid out [t4, B, 4] with t4 = ceil(t_pad/4):
@@ -35,7 +39,8 @@ NEG = -(2**30)       # -inf sentinel of the int32 DP (== opal_tpu's NEG)
 PAD_NEG = -(2**20)   # profile value of letters outside the alphabet
 PROFILE_WIDTH = 32   # profile columns for alphabets up to 31 letters
 MAX_ALPHABET = 128   # letters are int8
-STRIP_ROWS = 16      # query rows per register strip (== R in ragged_dp.cu)
+STRIP_ROWS = 16      # query rows per register strip (== R in the kernels)
+MULTI_MAX_SEGS = 8   # queries per multi_dp launch (== MAX_SEGS in multi_dp.cu)
 # Scratch cells (one int2 boundary pair per lane and column) per launch;
 # larger databases launch in waves of consecutive blocks.
 WAVE_CELLS = 32 * 1024 * 1024
@@ -43,8 +48,8 @@ MAX_WAVE_BLOCKS = 65535  # CUDA grid.y limit
 
 # Launches of each kernel and calls of each plain version; the counts
 # let a run show which path it took.
-LAUNCHES = {"ragged_dp": 0}
-PLAIN_CALLS = {"ragged_score_plain": 0}
+LAUNCHES = {"ragged_dp": 0, "multi_dp": 0}
+PLAIN_CALLS = {"ragged_score_plain": 0, "multi_score_plain": 0}
 
 # tracker row ids (opal_tpu's TR_* numbering, kept for reading across)
 TR_BEST = 0      # SW best score / HW-OV last-row running max / OV score
@@ -69,24 +74,22 @@ def tracker_rows(mode, search_type):
     return (TR_BEST,) + ((TR_BEST_C,) if track_end else ())
 
 
-def finalize_trackers(tr: np.ndarray, mode, search_type, Q, lengths):
-    """Emitted tracker rows [n_rows, B] -> {score[, end_q, end_t]} (host)."""
-    track_end = search_type != SEARCH_SCORE
-    row = {r: tr[j] for j, r in enumerate(tracker_rows(mode, search_type))}
-    if mode == MODE_NW:
-        out = {"score": row[TR_NW]}
-        if track_end:
-            out["end_q"] = np.full_like(row[TR_NW], Q - 1)
-            out["end_t"] = lengths - 1
-        return out
-    out = {"score": row[TR_BEST]}
-    if track_end:
-        if mode == MODE_HW:
-            out["end_q"] = np.full_like(row[TR_BEST], Q - 1)
-        else:
-            out["end_q"] = row[TR_BEST_R]
-        out["end_t"] = row[TR_BEST_C]
-    return out
+def finalize_device(tr: torch.Tensor, lengths: torch.Tensor, mode,
+                    search_type, Q):
+    """Tracker rows [NB, n_rows, B] (see tracker_rows) -> (score, end_q,
+    end_t) [NB, B] int32 on tr's device, for every block at once; end_q and
+    end_t are None at score depth. NW ends are (Q-1, len-1), HW's end_q is
+    Q-1."""
+    row = {r: tr[:, j] for j, r in enumerate(tracker_rows(mode, search_type))}
+    score = row[TR_NW if mode == MODE_NW else TR_BEST]
+    if search_type == SEARCH_SCORE:
+        return score, None, None
+    if mode in (MODE_NW, MODE_HW):
+        end_q = torch.full_like(score, Q - 1)
+    else:
+        end_q = row[TR_BEST_R]
+    end_t = lengths - 1 if mode == MODE_NW else row[TR_BEST_C]
+    return score, end_q, end_t
 
 
 def build_profile(qprofile: np.ndarray) -> np.ndarray:
@@ -100,6 +103,35 @@ def build_profile(qprofile: np.ndarray) -> np.ndarray:
     prof = np.full((Q, max(PROFILE_WIDTH, A)), PAD_NEG, np.int32)
     prof[:, :A] = np.asarray(qprofile, np.int32).T
     return prof
+
+
+def segment_rows(Q: int) -> int:
+    """Rows a query of Q residues takes in a stacked profile: Q rounded up
+    to whole strips (opal_tpu's 16-quantized segment heights)."""
+    return -(-max(Q, 1) // STRIP_ROWS) * STRIP_ROWS
+
+
+def prepare_profile_multi(qprofiles):
+    """Stack query profiles (qprofile [A, Q_s] each) into multi_dp's
+    operand: [sum segment_rows(Q_s), W] int32, each segment padded with
+    PAD_NEG rows so that no strip spans two segments (the counterpart of
+    opal_tpu's prepare_qp_multi, pallas_kernels.py:1524-1545). Returns
+    (profile, seg_qs)."""
+    if not 1 <= len(qprofiles) <= MULTI_MAX_SEGS:
+        raise ValueError(f"{len(qprofiles)} queries; a stacked launch takes "
+                         f"1..{MULTI_MAX_SEGS}")
+    profs = [build_profile(qp) for qp in qprofiles]
+    W = max(p.shape[1] for p in profs)
+    seg_qs = tuple(p.shape[0] for p in profs)
+    if min(seg_qs) < 1:
+        raise ValueError("empty query")
+    out = np.full((sum(segment_rows(q) for q in seg_qs), W), PAD_NEG,
+                  np.int32)
+    off = 0
+    for p in profs:
+        out[off:off + p.shape[0], :p.shape[1]] = p
+        off += segment_rows(p.shape[0])
+    return out, seg_qs
 
 
 def profile_from_jax_qp(qp, Q: int, ge: int) -> np.ndarray:
@@ -168,7 +200,7 @@ def ragged_score(profile: torch.Tensor, stream: Stream, mode: int,
                  search_type: int, go: int, ge: int) -> torch.Tensor:
     """Score one query (profile [Q, W] int32) against every lane of the
     stream. Returns the tracker rows [NB, len(tracker_rows), B] int32 on
-    the stream's device (see finalize_trackers)."""
+    the stream's device (see finalize_device)."""
     _check_inputs(profile, stream)
     dev = stream.letters.device
     if dev.type == "cpu":
@@ -182,28 +214,86 @@ def ragged_score(profile: torch.Tensor, stream: Stream, mode: int,
     out = torch.empty((NB, rows, B), dtype=torch.int32, device=dev)
     if NB == 0:
         return out
+    lib = _lib("ragged_dp")
+
+    def launch(scratch, first, n, cu_stream):
+        return lib.ragged_dp_launch(
+            profile.data_ptr(), stream.letters.data_ptr(),
+            stream.offsets.data_ptr(), stream.lengths.data_ptr(),
+            scratch, out.data_ptr(), first, n, B, Q, W, int(mode),
+            int(search_type != SEARCH_SCORE), int(go), int(ge), cu_stream)
+
+    _launch_waves("ragged_dp", launch, stream, Q > STRIP_ROWS)
+    return out
+
+
+def multi_score(profile: torch.Tensor, seg_qs, stream: Stream, mode: int,
+                search_type: int, go: int, ge: int) -> torch.Tensor:
+    """Score len(seg_qs) stacked queries (profile from
+    prepare_profile_multi) against every lane of the stream in one pass.
+    Returns [NB, n_seg * (3 if score+end else 1), B] int32 on the stream's
+    device: rows [scores | end_qs | end_ts], final values (segment s equals
+    finalize_device of ragged_score on query s alone)."""
+    seg_qs = _check_segments(profile, seg_qs, stream)
+    dev = stream.letters.device
+    if dev.type == "cpu":
+        return multi_score_plain(profile, seg_qs, stream, mode, search_type,
+                                 go, ge)
+    if dev.type != "cuda":
+        raise ValueError(f"no multi_dp kernel for device {dev}")
+    profile = profile.contiguous()
+    NB, B = stream.lengths.shape
+    n_seg = len(seg_qs)
+    track_end = search_type != SEARCH_SCORE
+    out = torch.empty((NB, n_seg * (3 if track_end else 1), B),
+                      dtype=torch.int32, device=dev)
+    if NB == 0:
+        return out
+    lib = _lib("multi_dp")
+    c_qs = (ctypes.c_int * n_seg)(*seg_qs)
+
+    def launch(scratch, first, n, cu_stream):
+        return lib.multi_dp_launch(
+            profile.data_ptr(), stream.letters.data_ptr(),
+            stream.offsets.data_ptr(), stream.lengths.data_ptr(),
+            scratch, out.data_ptr(), first, n, B, profile.shape[1], n_seg,
+            c_qs, int(mode), int(track_end), int(go), int(ge), cu_stream)
+
+    _launch_waves("multi_dp", launch, stream, max(seg_qs) > STRIP_ROWS)
+    return out
+
+
+def _check_segments(profile: torch.Tensor, seg_qs, stream: Stream):
+    _check_inputs(profile, stream)
+    seg_qs = tuple(int(q) for q in seg_qs)
+    if not 1 <= len(seg_qs) <= MULTI_MAX_SEGS or min(seg_qs) < 1:
+        raise ValueError(f"segments {seg_qs}: 1..{MULTI_MAX_SEGS} queries "
+                         "of at least one residue")
+    if profile.shape[0] != sum(segment_rows(q) for q in seg_qs):
+        raise ValueError(f"profile of {profile.shape[0]} rows for segments "
+                         f"{seg_qs}")
+    return seg_qs
+
+
+def _launch_waves(name, launch, stream: Stream, tall: bool):
+    """Run launch(scratch_ptr, first_block, n_blocks, cu_stream) once per
+    wave of blocks, with one boundary scratch sized for the largest wave
+    (None when no strip hands rows to another, i.e. `tall` is false)."""
+    dev = stream.letters.device
     waves = plan_waves(stream.host_offsets)
     scratch = None
-    if Q > STRIP_ROWS:  # boundary rows pass between strips through scratch
+    if tall:  # boundary rows pass between strips through scratch
         cells = max(int(stream.host_offsets[f + n] - stream.host_offsets[f])
                     for f, n in waves)
         scratch = torch.empty(2 * cells, dtype=torch.int32, device=dev)
-    lib = _lib()
     with torch.cuda.device(dev):
         cu_stream = torch.cuda.current_stream(dev).cuda_stream
         for first, n in waves:
-            err = lib.ragged_dp_launch(
-                profile.data_ptr(), stream.letters.data_ptr(),
-                stream.offsets.data_ptr(), stream.lengths.data_ptr(),
-                None if scratch is None else scratch.data_ptr(),
-                out.data_ptr(), first, n, B, Q, W, int(mode),
-                int(search_type != SEARCH_SCORE), int(go), int(ge),
-                cu_stream)
+            err = launch(None if scratch is None else scratch.data_ptr(),
+                         first, n, cu_stream)
             if err:
-                raise RuntimeError(f"ragged_dp launch failed: CUDA error "
-                                   f"{err}")
-            LAUNCHES["ragged_dp"] += 1
-    return out
+                raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+            LAUNCHES[name] += 1
 
 
 def plan_waves(host_offsets: np.ndarray):
@@ -222,14 +312,19 @@ def plan_waves(host_offsets: np.ndarray):
     return waves
 
 
-def _lib():
-    """The built ragged_dp library, with its C signature declared."""
+def _lib(name):
+    """The built library of kernel `name`, with its C signature declared."""
     from . import _build
 
-    lib = _build.load("ragged_dp")
+    lib = _build.load(name)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ragged_dp_launch.argtypes = [vp] * 6 + [ci] * 9 + [vp]
-    lib.ragged_dp_launch.restype = ci
+    if name == "ragged_dp":
+        args = [vp] * 6 + [ci] * 9 + [vp]
+    else:  # multi_dp: ..., n_seg, seg_q, mode, track_end, go, ge, stream
+        args = [vp] * 6 + [ci] * 5 + [ctypes.POINTER(ci)] + [ci] * 4 + [vp]
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = args
+    fn.restype = ci
     return lib
 
 
@@ -368,3 +463,24 @@ def ragged_score_plain(profile: torch.Tensor, stream: Stream, mode: int,
                      torch.where(in_last, lens - 1, lr_c)]
     return torch.stack(outs, dim=0).reshape(len(outs), NB, B).transpose(
         0, 1).contiguous()
+
+
+def multi_score_plain(profile: torch.Tensor, seg_qs, stream: Stream,
+                      mode: int, search_type: int, go: int,
+                      ge: int) -> torch.Tensor:
+    """The function `multi_dp` computes, in plain PyTorch int32: each
+    segment through ragged_score_plain on its own query, then finalized to
+    multi_dp's final-value rows [scores | end_qs | end_ts]."""
+    seg_qs = _check_segments(profile, seg_qs, stream)
+    PLAIN_CALLS["multi_score_plain"] += 1
+    cols = ([], [], [])
+    off = 0
+    for Q in seg_qs:
+        tr = ragged_score_plain(profile[off:off + Q], stream, mode,
+                                search_type, go, ge)
+        for c, v in zip(cols, finalize_device(tr, stream.lengths, mode,
+                                              search_type, Q)):
+            if v is not None:
+                c.append(v)
+        off += segment_rows(Q)
+    return torch.stack(cols[0] + cols[1] + cols[2], dim=1)

@@ -6,8 +6,10 @@ Mirrors opal_tpu/engine/search.py (itself the contract of the reference's
 results already carry a score (and end location when needed) are not
 recomputed (src/opal.cpp:1446-1451).
 
-This slice of the port covers score (search_type 0) and score + end (1).
-Full alignment (2), the adaptive precision cascade and multi-query search
+The port covers score (search_type 0) and score + end (1), for one query
+(the ragged_dp kernel) and for many (search_database_multi_arrays: stacked
+groups through the multi_dp kernel), with the top k selected on the device
+(engine/ranked.py). Full alignment (2) and the adaptive precision cascade
 raise NotImplementedError until their slices land (ROADMAP.md, queue A).
 
 Every entry point runs on the engine's device, "cuda" unless the caller
@@ -32,6 +34,7 @@ from ..constants import (
     SEARCH_SCORE,
 )
 from ..result import SearchResult
+from . import kernels, ranked
 from .backend import RaggedBackend
 from .device_db import DeviceDatabase
 
@@ -130,7 +133,9 @@ class Engine:
         """Score (a subset of) the DB. Returns (indices, columns) where
         columns is a dict of per-index arrays (score [+ end_q/end_t]).
         top_k > 0: only the k best rows, ranked by (score desc, DB index
-        asc) on the host."""
+        asc); on the whole database they are selected on the device and
+        only candidates are downloaded (engine/ranked.py), on a subset the
+        host ranks them."""
         backend = self._backend
         matrix = np.asarray(matrix, dtype=np.int32)
         qprofile = np.ascontiguousarray(
@@ -158,8 +163,11 @@ class Engine:
         profile = backend.prepare_query(qprofile, gap_open, gap_ext)
         handle = backend.dispatch_many(profile, ddb, gap_open, gap_ext,
                                        mode, search_type)
-        tr = backend.gather(handle)  # one device->host copy
-        per_block = backend.collect_many(tr, ddb, mode, search_type, Q)
+        if top_k and index_map is None:
+            out = ranked.topk_from_handle(handle, ddb, mode, search_type, Q,
+                                          top_k)
+            return out.pop("index"), out
+        per_block = backend.collect_many(handle, ddb, mode, search_type, Q)
         all_idx = []
         cols: dict[str, list] = {}
         for blk, out in per_block:
@@ -243,11 +251,86 @@ _X2_LATER = ("search_type=2 (full alignment) comes with a later slice of "
              "available with search_type 0/1")
 
 
-def search_database_multi_arrays(*args, **kwargs):
-    """Many queries against one database: a later slice of the port."""
-    raise NotImplementedError(
-        "search_database_multi_arrays comes with a later slice of the port "
-        "(ROADMAP.md A.9); call search_database_arrays once per query")
+def plan_groups(queries, fits):
+    """Stacked groups of query positions, as opal_tpu forms them
+    (opal_tpu/engine/search.py:359-434): a stable sort on the 16-quantized
+    length, then groups grown along it while `fits(group)` holds, at most
+    MULTI_MAX_SEGS each. A group of one runs on the single-query path."""
+    perm = sorted(range(len(queries)),
+                  key=lambda i: (len(queries[i]) + 15) // 16)
+    groups, i = [], 0
+    while i < len(perm):
+        j = i + 1
+        while (j < len(perm) and j - i < kernels.MULTI_MAX_SEGS
+               and fits([queries[p] for p in perm[i:j + 1]])):
+            j += 1
+        groups.append(perm[i:j])
+        i = j
+    return groups
+
+
+def search_database_multi_arrays(
+    queries,
+    db,
+    gap_open: int = 3,
+    gap_ext: int = 1,
+    matrix=None,
+    mode: int = MODE_SW,
+    search_type: int = SEARCH_SCORE,
+    engine: Optional[Engine] = None,
+    top_k: int = 0,
+):
+    """Many queries against one database. Returns one array-dict per query
+    (see search_database_arrays), in query order; top_k > 0 switches each
+    to the ranked shape ({"index", "score"[, ends]} of the k best), selected
+    on the device.
+
+    Queries are grouped by length (plan_groups); each group of two or more
+    runs as one stacked multi_dp pass per wave of blocks, a group of one
+    through search_database_arrays. The grouping decides launches only: each
+    query's result equals its own single-query search."""
+    if matrix is None:
+        raise ValueError("matrix is required")
+    if search_type == SEARCH_ALIGNMENT:
+        raise NotImplementedError(_X2_LATER)
+    engine = engine or get_default_engine()
+    backend = engine._backend
+    queries = [np.asarray(q, dtype=np.uint8) for q in queries]
+    ddb = engine._get_resident(db)
+    matrix_np = np.asarray(matrix, dtype=np.int32)
+    A = matrix_np.shape[0]
+
+    def fits(group):
+        return backend.supports_multi(group, gap_open, gap_ext, A, matrix_np,
+                                      ddb.max_len)
+
+    out: list = [None] * len(queries)
+    for group in plan_groups(queries, fits):
+        if len(group) == 1:
+            out[group[0]] = search_database_arrays(
+                queries[group[0]], ddb, gap_open, gap_ext, matrix_np,
+                mode=mode, search_type=search_type, engine=engine,
+                top_k=top_k)
+            continue
+        if ddb.max_letter >= A:
+            raise ValueError(f"database letter {ddb.max_letter} outside the "
+                             f"{A}-letter matrix")
+        handle = backend.dispatch_multi(
+            [np.ascontiguousarray(matrix_np[queries[p].astype(np.int64)].T)
+             for p in group], ddb, gap_open, gap_ext, mode, search_type)
+        if top_k:
+            for p, cols in zip(group, ranked.topk_from_multi_handle(
+                    handle, ddb, top_k)):
+                out[p] = _finish_cols(cols, mode, search_type)
+            continue
+        for p, per_block in zip(group, backend.collect_multi(handle, ddb)):
+            cols: dict = {}
+            for blk, blk_cols in per_block:
+                for k, v in blk_cols.items():
+                    cols.setdefault(k, np.empty(ddb.n, np.int32))[
+                        blk.indices] = v
+            out[p] = _finish_cols(cols, mode, search_type, n=ddb.n)
+    return out
 
 
 _default_engine: Optional[Engine] = None

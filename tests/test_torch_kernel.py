@@ -56,6 +56,16 @@ def _problem(seed, go, ge, n=45):
     return query, db, matrix, tmax
 
 
+def _finalized(tr, blocks, mode, x, Q):
+    """kernels.finalize_device's columns of tracker rows [NB, n_rows, B],
+    one {col: [B] array} per block."""
+    lengths = torch.from_numpy(np.stack([b.lengths for b in blocks]))
+    cols = kernels.finalize_device(torch.from_numpy(tr), lengths, mode, x, Q)
+    return [{k: c[bi].numpy() for k, c in zip(("score", "end_q", "end_t"),
+                                               cols) if c is not None}
+            for bi in range(len(blocks))]
+
+
 def _port_trackers(query, db, matrix, mode, x, go, ge):
     blocks = batching.plan_blocks(db, B)
     stream = kernels.pack_stream([b.letters for b in blocks],
@@ -76,12 +86,13 @@ def test_plain_matches_xla_twin(mode, x, go, ge):
     # block padded to one shape so it compiles once
     fn = build_score_fn(mode, SEARCH_SCORE_END, Q, go, ge)
     qprofile = matrix[query].T.astype(np.int32)
+    final = _finalized(tr, blocks, mode, x, Q)
     for bi, blk in enumerate(blocks):
         letters = np.full((tmax, B), batching.PAD_LETTER, np.int32)
         letters[: blk.t_pad] = blk.letters
         want = {k: np.asarray(v) for k, v in
                 fn(qprofile, letters, blk.lengths).items()}
-        got = kernels.finalize_trackers(tr[bi], mode, x, Q, blk.lengths)
+        got = final[bi]
         assert set(got) == ({"score"} if x == SEARCH_SCORE
                             else {"score", "end_q", "end_t"})
         for k, v in got.items():  # every lane, padding lanes included
@@ -101,12 +112,12 @@ def test_plain_matches_xla_twin_large_alphabet(mode):
     blocks, tr = _port_trackers(query, db, matrix, mode, SEARCH_SCORE_END,
                                 3, 1)
     fn = build_score_fn(mode, SEARCH_SCORE_END, len(query), 3, 1)
+    final = _finalized(tr, blocks, mode, SEARCH_SCORE_END, len(query))
     for bi, blk in enumerate(blocks):
         letters = np.zeros((80, B), np.int32)
         letters[: blk.t_pad] = blk.letters
         want = fn(matrix[query].T, letters, blk.lengths)
-        got = kernels.finalize_trackers(tr[bi], mode, SEARCH_SCORE_END,
-                                        len(query), blk.lengths)
+        got = final[bi]
         for k, v in got.items():
             np.testing.assert_array_equal(v, np.asarray(want[k]),
                                           err_msg=f"{k} {bi}")
@@ -145,11 +156,12 @@ def test_plain_matches_pallas_interpret(mode, x):
                            jnp.asarray(letters), jnp.asarray(lengths)))
     blocks, tr = _port_trackers(query, db, matrix, mode, x, go, ge)
     assert len(blocks) == nb
+    final = _finalized(tr, blocks, mode, x, Q)
     for bi, blk in enumerate(blocks):
         np.testing.assert_array_equal(blk.indices, jdb.blocks[bi].indices)
         want = pk.finalize_trackers(tr_jax[bi].astype(np.int32), mode, x, Q,
                                     blk.lengths)
-        got = kernels.finalize_trackers(tr[bi], mode, x, Q, blk.lengths)
+        got = final[bi]
         for k, v in got.items():
             np.testing.assert_array_equal(v[: blk.n], want[k][: blk.n],
                                           err_msg=f"{k} {bi}")

@@ -4,7 +4,7 @@ Both engines search the same random protein database through
 search_database_arrays and search_database; every field must be equal
 (integer DP, no tolerance). Covers x0/x1, top_k, skip semantics, several
 block sizes with a partial first block, a resident database and the parts
-of the API that belong to later slices.
+of the API that belong to later slices (x2, the adaptive cascade).
 """
 import numpy as np
 import pytest
@@ -185,9 +185,16 @@ def test_later_slices_raise(problem):
         search_database_arrays(query, db, 3, 1, matrix,
                                search_type=SEARCH_ALIGNMENT, engine=engine)
     with pytest.raises(NotImplementedError):
-        search_database_multi_arrays([query], db, 3, 1, matrix)
+        search_database_multi_arrays([query, query[:20]], db, 3, 1, matrix,
+                                     search_type=SEARCH_ALIGNMENT,
+                                     engine=engine)
     with pytest.raises(NotImplementedError):
         Engine(device="cpu", precision="adaptive")
+    # multi-query search is no later slice: it answers (tests/
+    # test_torch_multi.py holds it against opal_tpu)
+    out = search_database_multi_arrays([query, query[:20]], db, 3, 1,
+                                       matrix, engine=engine)
+    assert [len(o["score"]) for o in out] == [len(db), len(db)]
 
 
 def test_inputs_outside_the_kernel_raise(problem):
