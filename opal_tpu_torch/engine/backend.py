@@ -55,23 +55,22 @@ class RaggedBackend:
             self.device)
 
     def dispatch_many(self, profile, ddb, gap_open, gap_ext, mode,
-                      search_type):
-        """Enqueue the whole database; returns the device tracker rows."""
+                      search_type, with_flags=False):
+        """Enqueue the whole database; returns the device tracker rows
+        (with the overflow-flag rows when with_flags)."""
         if not ddb.blocks:
             return None
         return kernels.ragged_score(profile, ddb.stream, mode, search_type,
-                                    int(gap_open), int(gap_ext))
+                                    int(gap_open), int(gap_ext), with_flags)
 
-    def collect_many(self, tr, ddb, mode, search_type, Q):
+    def collect_many(self, tr, ddb, mode, search_type, Q, with_flags=False):
         """Finalize the tracker rows on the device, then one device->host
         copy; returns [(Block, {col: [n] array}), ...] over all DB
-        blocks."""
+        blocks (the flag columns too when with_flags)."""
         if tr is None:
             return []
-        cols = {k: v for k, v in zip(
-            ("score", "end_q", "end_t"),
-            kernels.finalize_device(tr, ddb.stream.lengths, mode,
-                                    search_type, Q)) if v is not None}
+        cols = kernels.finalize_device(tr, ddb.stream.lengths, mode,
+                                       search_type, Q, with_flags)
         host = torch.stack(list(cols.values()), dim=1).cpu().numpy()
         return [(blk, {k: host[bi, j, :blk.n] for j, k in enumerate(cols)})
                 for bi, blk in enumerate(ddb.blocks)]

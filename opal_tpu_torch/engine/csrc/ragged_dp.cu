@@ -33,6 +33,22 @@
 // per whole-database search (read once per strip), scratch traffic 16 / R
 // bytes per cell.
 //
+// Overflow flags (FLAGS, K4). Also replaces the with_flags branch of
+// _kernel_body (pallas_kernels.py:525-549, rows :199-202), with the int32
+// semantics of xla.py:136-141, 201-216, 250-255: per lane, over its valid
+// cells, SW keeps the running max of the diagonal candidate ulH + P (before
+// the max with E and F and the clamp at 0); NW, HW and OV keep min E and
+// min F (both start at 0, as a masked cell counts 0) and max H. The rows
+// follow the score rows (TR_ULHP, or TR_MIN_E, TR_MIN_F, TR_MAX_H) and are
+// what engine/cascade.py reads. Unlike the score trackers, the flags must
+// mask the padding rows of the last strip: below row Q-1 F can fall by ge
+// per row and E follows the padded H, to values no real cell holds.
+// Columns at or past a lane's length are never walked, so the column mask
+// is structural. The least extra work is 0.5 max-type instruction per SW
+// cell (one __vimax3_s32 folds two cells) and 1.5 per NW/HW/OV cell (min E,
+// min F, max H, two cells per 3-input instruction); with FLAGS false the
+// kernel is the code it was without them.
+//
 // Left for later: DPX instructions (__viaddmax_s32, __vimax3_s32) to fuse
 // add+max and max3; the profile held in registers instead of shared memory;
 // query tiling across the warps of a block (inter-thread wavefront) instead
@@ -62,7 +78,7 @@ struct Args {
   int first_block, B, Q, W, go, ge;
 };
 
-template <int MODE, bool END>
+template <int MODE, bool END, bool FLAGS>
 __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
   __shared__ int sprof[MAX_W * RS];
   constexpr bool WALL = MODE == MODE_NW || MODE == MODE_HW;
@@ -83,11 +99,14 @@ __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
   int lr = NEG, lr_c = 0, plrm = NEG;    // HW / OV last row
   int ocm = NEG, orow = 0;               // OV last column
   int nw = NEG;                          // NW
+  // overflow flags: SW max ulH+P | min E, min F, max H
+  int fl_ulhp = NEG, fl_mine = 0, fl_minf = 0, fl_maxh = NEG;
 
   for (int s = 0; s < ns; ++s) {
     const int r0 = s * R;
     const bool last = s == ns - 1;
     const int jl = Q - 1 - r0;  // row Q-1 within the last strip
+    const int jv = last ? jl : R - 1;  // last real row of this strip
     __syncthreads();
     for (int i = threadIdx.x; i < W * R; i += THREADS) {
       const int c = i / R, j = i - c * R;
@@ -130,8 +149,18 @@ __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
         for (int j = 0; j < R; ++j) {
           const int e = max(H[j] - go, E[j] - ge);
           const int f = max(hu - go, fu - ge);
-          int h = max(max(e, f), diag + pr[j]);
+          const int d = diag + pr[j];  // ulH + P
+          int h = max(max(e, f), d);
           if (MODE == MODE_SW) h = max(h, 0);
+          if (FLAGS && j <= jv) {  // real rows only (see the header)
+            if (MODE == MODE_SW) {
+              fl_ulhp = max(fl_ulhp, d);
+            } else {
+              fl_mine = min(fl_mine, e);
+              fl_minf = min(fl_minf, f);
+              fl_maxh = max(fl_maxh, h);
+            }
+          }
           diag = H[j];
           H[j] = h;
           E[j] = e;
@@ -201,8 +230,18 @@ __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
 
   if (lane >= B) return;
   // tracker rows, as kernels.tracker_rows lists them
-  constexpr int ROWS = (MODE == MODE_NW || !END) ? 1 : MODE == MODE_HW ? 2 : 3;
+  constexpr int SROWS = (MODE == MODE_NW || !END) ? 1 : MODE == MODE_HW ? 2 : 3;
+  constexpr int ROWS = SROWS + (FLAGS ? (MODE == MODE_SW ? 1 : 3) : 0);
   int* o = a.out + (size_t)blk * ROWS * B + lane;
+  if (FLAGS) {  // after the score rows, in opal_tpu's order
+    if (MODE == MODE_SW) {
+      o[SROWS * B] = fl_ulhp;
+    } else {
+      o[SROWS * B] = fl_mine;
+      o[(SROWS + 1) * B] = fl_minf;
+      o[(SROWS + 2) * B] = fl_maxh;
+    }
+  }
   if (MODE == MODE_NW) {
     o[0] = nw;
   } else if (MODE == MODE_SW) {
@@ -225,22 +264,37 @@ __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
   }
 }
 
-template <int MODE, bool END>
+template <int MODE, bool END, bool FLAGS>
 void launch(const Args& a, int n_blocks, cudaStream_t stream) {
   const dim3 grid((a.B + THREADS - 1) / THREADS, n_blocks);
-  ragged_dp_kernel<MODE, END><<<grid, THREADS, 0, stream>>>(a);
+  ragged_dp_kernel<MODE, END, FLAGS><<<grid, THREADS, 0, stream>>>(a);
+}
+
+// the four (END, FLAGS) instantiations of one mode
+template <int MODE>
+void launch_mode(const Args& a, int n_blocks, cudaStream_t st, bool e,
+                 bool f) {
+  if (f) {
+    e ? launch<MODE, true, true>(a, n_blocks, st)
+      : launch<MODE, false, true>(a, n_blocks, st);
+  } else {
+    e ? launch<MODE, true, false>(a, n_blocks, st)
+      : launch<MODE, false, false>(a, n_blocks, st);
+  }
 }
 
 }  // namespace
 
 // Launches the kernel over blocks [first_block, first_block + n_blocks).
 // scratch holds 2 int32 per byte of those blocks' letters (may be null when
-// Q <= R). Returns cudaGetLastError() (0 on success).
+// Q <= R). with_flags adds the overflow-flag rows after the score rows.
+// Returns cudaGetLastError() (0 on success).
 extern "C" int ragged_dp_launch(const void* profile, const void* letters,
                                 const void* offsets, const void* lengths,
                                 void* scratch, void* out, int first_block,
                                 int n_blocks, int B, int Q, int W, int mode,
-                                int track_end, int go, int ge, void* stream) {
+                                int track_end, int with_flags, int go, int ge,
+                                void* stream) {
   if (W > MAX_W || W < 1 || Q < 1 || B < 1 || n_blocks < 1 ||
       n_blocks > 65535 || (Q > R && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -252,16 +306,12 @@ extern "C" int ragged_dp_launch(const void* profile, const void* letters,
          static_cast<int*>(out),
          first_block, B, Q, W, go, ge};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool e = track_end != 0;
+  const bool e = track_end != 0, f = with_flags != 0;
   switch (mode) {
-    case MODE_NW: e ? launch<MODE_NW, true>(a, n_blocks, st)
-                    : launch<MODE_NW, false>(a, n_blocks, st); break;
-    case MODE_HW: e ? launch<MODE_HW, true>(a, n_blocks, st)
-                    : launch<MODE_HW, false>(a, n_blocks, st); break;
-    case MODE_OV: e ? launch<MODE_OV, true>(a, n_blocks, st)
-                    : launch<MODE_OV, false>(a, n_blocks, st); break;
-    case MODE_SW: e ? launch<MODE_SW, true>(a, n_blocks, st)
-                    : launch<MODE_SW, false>(a, n_blocks, st); break;
+    case MODE_NW: launch_mode<MODE_NW>(a, n_blocks, st, e, f); break;
+    case MODE_HW: launch_mode<MODE_HW>(a, n_blocks, st, e, f); break;
+    case MODE_OV: launch_mode<MODE_OV>(a, n_blocks, st, e, f); break;
+    case MODE_SW: launch_mode<MODE_SW>(a, n_blocks, st, e, f); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

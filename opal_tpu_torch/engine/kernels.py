@@ -7,7 +7,8 @@ recurrence over its own columns only. The CUDA kernel
 (csrc/ragged_dp.cu, `ragged_dp`) replaces opal_tpu's Pallas kernel
 `build_pallas_ragged_fn_raw` / `_kernel_body`
 (opal_tpu/engine/pallas_kernels.py:825-924, body :264-728) in all four
-modes at score and score+end depth. The CUDA kernel csrc/multi_dp.cu
+modes at score and score+end depth, with or without the overflow-flag rows
+that the adaptive cascade reads (with_flags, :525-549). The CUDA kernel csrc/multi_dp.cu
 (`multi_dp`) replaces `build_pallas_multi_fn_raw` / `_kernel_multi`
 (:1440-1521, body :1163-1437): up to MULTI_MAX_SEGS queries stacked as
 independent row segments, scored in one pass.
@@ -48,7 +49,7 @@ MAX_WAVE_BLOCKS = 65535  # CUDA grid.y limit
 
 # Launches of each kernel and calls of each plain version; the counts
 # let a run show which path it took.
-LAUNCHES = {"ragged_dp": 0, "multi_dp": 0}
+LAUNCHES = {"ragged_dp": 0, "ragged_dp_flags": 0, "multi_dp": 0}
 PLAIN_CALLS = {"ragged_score_plain": 0, "multi_score_plain": 0}
 
 # tracker row ids (opal_tpu's TR_* numbering, kept for reading across)
@@ -56,6 +57,13 @@ TR_BEST = 0      # SW best score / HW-OV last-row running max / OV score
 TR_BEST_R = 1    # SW / OV end_q
 TR_BEST_C = 2    # SW end_t / HW-OV first-improvement column / OV end_t
 TR_NW = 3        # NW score, H[Q-1][len-1]
+TR_ULHP = 7      # SW overflow flag: running max of ulH + P
+TR_MIN_E = 8     # NW/HW/OV overflow flags: running min of E,
+TR_MIN_F = 9     # running min of F
+TR_MAX_H = 10    # and running max of H
+# flag rows' result columns (engine/cascade.py reads them)
+FLAG_COLUMNS = {TR_ULHP: "max_ulhp", TR_MIN_E: "min_e", TR_MIN_F: "min_f",
+                TR_MAX_H: "max_h"}
 
 
 def reset_counts() -> None:
@@ -64,32 +72,42 @@ def reset_counts() -> None:
             d[k] = 0
 
 
-def tracker_rows(mode, search_type):
-    """Tracker rows a config emits, in output order."""
+def tracker_rows(mode, search_type, with_flags=False):
+    """Tracker rows a config emits, in output order: the score rows, then
+    the flag rows (opal_tpu's order, pallas_kernels.py:210-228)."""
     track_end = search_type != SEARCH_SCORE
     if mode == MODE_SW or mode == MODE_OV:
-        return (TR_BEST,) + ((TR_BEST_R, TR_BEST_C) if track_end else ())
-    if mode == MODE_NW:
-        return (TR_NW,)
-    return (TR_BEST,) + ((TR_BEST_C,) if track_end else ())
+        rows = (TR_BEST,) + ((TR_BEST_R, TR_BEST_C) if track_end else ())
+    elif mode == MODE_NW:
+        rows = (TR_NW,)
+    else:
+        rows = (TR_BEST,) + ((TR_BEST_C,) if track_end else ())
+    if with_flags:
+        rows += ((TR_ULHP,) if mode == MODE_SW
+                 else (TR_MIN_E, TR_MIN_F, TR_MAX_H))
+    return rows
 
 
 def finalize_device(tr: torch.Tensor, lengths: torch.Tensor, mode,
-                    search_type, Q):
-    """Tracker rows [NB, n_rows, B] (see tracker_rows) -> (score, end_q,
-    end_t) [NB, B] int32 on tr's device, for every block at once; end_q and
-    end_t are None at score depth. NW ends are (Q-1, len-1), HW's end_q is
-    Q-1."""
-    row = {r: tr[:, j] for j, r in enumerate(tracker_rows(mode, search_type))}
-    score = row[TR_NW if mode == MODE_NW else TR_BEST]
-    if search_type == SEARCH_SCORE:
-        return score, None, None
-    if mode in (MODE_NW, MODE_HW):
-        end_q = torch.full_like(score, Q - 1)
-    else:
-        end_q = row[TR_BEST_R]
-    end_t = lengths - 1 if mode == MODE_NW else row[TR_BEST_C]
-    return score, end_q, end_t
+                    search_type, Q, with_flags=False):
+    """Tracker rows [NB, n_rows, B] (see tracker_rows) -> {column: [NB, B]
+    int32} on tr's device, for every block at once: "score", at score+end
+    depth "end_q" and "end_t", and with_flags the flag rows passed through
+    as "max_ulhp" (SW) or "min_e", "min_f", "max_h". NW ends are (Q-1,
+    len-1), HW's end_q is Q-1."""
+    row = {r: tr[:, j] for j, r in
+           enumerate(tracker_rows(mode, search_type, with_flags))}
+    cols = {"score": row[TR_NW if mode == MODE_NW else TR_BEST]}
+    if search_type != SEARCH_SCORE:
+        if mode in (MODE_NW, MODE_HW):
+            cols["end_q"] = torch.full_like(cols["score"], Q - 1)
+        else:
+            cols["end_q"] = row[TR_BEST_R]
+        cols["end_t"] = lengths - 1 if mode == MODE_NW else row[TR_BEST_C]
+    for r, name in FLAG_COLUMNS.items():
+        if r in row:
+            cols[name] = row[r]
+    return cols
 
 
 def build_profile(qprofile: np.ndarray) -> np.ndarray:
@@ -197,20 +215,23 @@ def _check_inputs(profile: torch.Tensor, stream: Stream):
 
 
 def ragged_score(profile: torch.Tensor, stream: Stream, mode: int,
-                 search_type: int, go: int, ge: int) -> torch.Tensor:
+                 search_type: int, go: int, ge: int,
+                 with_flags: bool = False) -> torch.Tensor:
     """Score one query (profile [Q, W] int32) against every lane of the
     stream. Returns the tracker rows [NB, len(tracker_rows), B] int32 on
-    the stream's device (see finalize_device)."""
+    the stream's device (see finalize_device); with_flags adds the
+    overflow-flag rows (counted in LAUNCHES["ragged_dp_flags"])."""
     _check_inputs(profile, stream)
     dev = stream.letters.device
     if dev.type == "cpu":
-        return ragged_score_plain(profile, stream, mode, search_type, go, ge)
+        return ragged_score_plain(profile, stream, mode, search_type, go, ge,
+                                  with_flags)
     if dev.type != "cuda":
         raise ValueError(f"no ragged_dp kernel for device {dev}")
     profile = profile.contiguous()
     NB, B = stream.lengths.shape
     Q, W = profile.shape
-    rows = len(tracker_rows(mode, search_type))
+    rows = len(tracker_rows(mode, search_type, with_flags))
     out = torch.empty((NB, rows, B), dtype=torch.int32, device=dev)
     if NB == 0:
         return out
@@ -221,9 +242,11 @@ def ragged_score(profile: torch.Tensor, stream: Stream, mode: int,
             profile.data_ptr(), stream.letters.data_ptr(),
             stream.offsets.data_ptr(), stream.lengths.data_ptr(),
             scratch, out.data_ptr(), first, n, B, Q, W, int(mode),
-            int(search_type != SEARCH_SCORE), int(go), int(ge), cu_stream)
+            int(search_type != SEARCH_SCORE), int(bool(with_flags)),
+            int(go), int(ge), cu_stream)
 
-    _launch_waves("ragged_dp", launch, stream, Q > STRIP_ROWS)
+    _launch_waves("ragged_dp_flags" if with_flags else "ragged_dp", launch,
+                  stream, Q > STRIP_ROWS)
     return out
 
 
@@ -318,8 +341,8 @@ def _lib(name):
 
     lib = _build.load(name)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    if name == "ragged_dp":
-        args = [vp] * 6 + [ci] * 9 + [vp]
+    if name == "ragged_dp":  # ..., mode, track_end, with_flags, go, ge, stream
+        args = [vp] * 6 + [ci] * 10 + [vp]
     else:  # multi_dp: ..., n_seg, seg_q, mode, track_end, go, ge, stream
         args = [vp] * 6 + [ci] * 5 + [ctypes.POINTER(ci)] + [ci] * 4 + [vp]
     fn = getattr(lib, f"{name}_launch")
@@ -349,42 +372,52 @@ def _decode_letters(stream: Stream, T: int) -> torch.Tensor:
 
 def _column_prefix(H, E, P, ul0, uH0, uF0, go, ge, ramp, sw):
     """One column for all lanes, F chain as a max-plus prefix (exact for
-    ge <= go; opal_tpu/engine/xla.py::_column_update)."""
+    ge <= go; opal_tpu/engine/xla.py::_column_update). Returns (H, E, F,
+    ulH + P)."""
     E = torch.maximum(H - go, E - ge)
     ulH = torch.cat([torch.full_like(H[:, :1], ul0), H[:, :-1]], dim=1)
-    Hp = torch.maximum(E, ulH + P)
+    ulhp = ulH + P
+    Hp = torch.maximum(E, ulhp)
     if sw:
         Hp = Hp.clamp_min(0)
     c0 = max(uH0 - go, uF0 - ge)
     C = torch.cat([torch.full_like(Hp[:, :1], c0), Hp[:, :-1] - go], dim=1)
     F = torch.cummax(C + ramp, dim=1).values - ramp
-    return torch.maximum(Hp, F), E
+    return torch.maximum(Hp, F), E, F, ulhp
 
 
 def _column_seq(H, E, P, ul0, uH0, uF0, go, ge, sw):
     """One column for all lanes, F chain row by row (exact for any gaps;
-    opal_tpu/engine/xla.py::_column_update_seq)."""
+    opal_tpu/engine/xla.py::_column_update_seq). Returns (H, E, F,
+    ulH + P)."""
     L, Q = H.shape
     E = torch.maximum(H - go, E - ge)
     uH = torch.full((L,), uH0, dtype=H.dtype, device=H.device)
     uF = torch.full_like(uH, uF0)
     ul = torch.full_like(uH, ul0)
-    cols = []
+    cols, fs, ulhps = [], [], []
     for r in range(Q):
         F = torch.maximum(uH - go, uF - ge)
-        h = torch.maximum(torch.maximum(E[:, r], F), ul + P[:, r])
+        d = ul + P[:, r]
+        h = torch.maximum(torch.maximum(E[:, r], F), d)
         if sw:
             h = h.clamp_min(0)
         cols.append(h)
+        fs.append(F)
+        ulhps.append(d)
         ul, uH, uF = H[:, r], h, F
-    return torch.stack(cols, dim=1), E
+    return (torch.stack(cols, dim=1), E, torch.stack(fs, dim=1),
+            torch.stack(ulhps, dim=1))
 
 
 def ragged_score_plain(profile: torch.Tensor, stream: Stream, mode: int,
-                       search_type: int, go: int, ge: int) -> torch.Tensor:
+                       search_type: int, go: int, ge: int,
+                       with_flags: bool = False) -> torch.Tensor:
     """The function `ragged_dp` computes, in plain PyTorch int32: lanes
     vectorised, a Python loop over columns (the semantics of
-    opal_tpu/engine/xla.py::build_score_fn)."""
+    opal_tpu/engine/xla.py::build_score_fn). with_flags adds the flag rows
+    over each lane's valid cells (xla.py:201-216): there are no padding
+    rows here, and columns at or past a lane's length are masked."""
     _check_inputs(profile, stream)
     PLAIN_CALLS["ragged_score_plain"] += 1
     NB, B = stream.lengths.shape
@@ -411,6 +444,8 @@ def ragged_score_plain(profile: torch.Tensor, stream: Stream, mode: int,
     best, best_r, best_c = zeros.clone(), zeros.clone(), zeros.clone()
     lr, lr_c, plrm = negs.clone(), zeros.clone(), negs.clone()
     ocm, orow, nw = negs.clone(), zeros.clone(), negs.clone()
+    max_ulhp, max_h = negs.clone(), negs.clone()
+    min_e, min_f = zeros.clone(), zeros.clone()
 
     for t in range(T):
         P = prof_t[letters[t]]  # [L, Q]
@@ -421,10 +456,21 @@ def ragged_score_plain(profile: torch.Tensor, stream: Stream, mode: int,
             uH0 = ul0 = 0
         uF0 = 0 if sw else NEG
         if ge <= go:
-            H, E = _column_prefix(H, E, P, ul0, uH0, uF0, go, ge, ramp, sw)
+            H, E, F, ulhp = _column_prefix(H, E, P, ul0, uH0, uF0, go, ge,
+                                           ramp, sw)
         else:
-            H, E = _column_seq(H, E, P, ul0, uH0, uF0, go, ge, sw)
+            H, E, F, ulhp = _column_seq(H, E, P, ul0, uH0, uF0, go, ge, sw)
         valid = t < lens
+        if with_flags:
+            vm = valid[:, None]
+            if sw:
+                max_ulhp = torch.maximum(
+                    max_ulhp, torch.where(vm, ulhp, NEG).amax(dim=1))
+            else:
+                min_e = torch.minimum(min_e, torch.where(vm, E, 0).amin(dim=1))
+                min_f = torch.minimum(min_f, torch.where(vm, F, 0).amin(dim=1))
+                max_h = torch.maximum(max_h,
+                                      torch.where(vm, H, NEG).amax(dim=1))
         if sw:
             colmax, argrow = torch.max(H, dim=1)
             improved = valid & (colmax > best)
@@ -461,6 +507,8 @@ def ragged_score_plain(profile: torch.Tensor, stream: Stream, mode: int,
             in_last = ocm > plrm
             outs += [torch.where(in_last, orow, torch.full_like(orow, Q - 1)),
                      torch.where(in_last, lens - 1, lr_c)]
+    if with_flags:
+        outs += [max_ulhp] if sw else [min_e, min_f, max_h]
     return torch.stack(outs, dim=0).reshape(len(outs), NB, B).transpose(
         0, 1).contiguous()
 
@@ -478,9 +526,9 @@ def multi_score_plain(profile: torch.Tensor, seg_qs, stream: Stream,
     for Q in seg_qs:
         tr = ragged_score_plain(profile[off:off + Q], stream, mode,
                                 search_type, go, ge)
-        for c, v in zip(cols, finalize_device(tr, stream.lengths, mode,
-                                              search_type, Q)):
-            if v is not None:
-                c.append(v)
+        fin = finalize_device(tr, stream.lengths, mode, search_type, Q)
+        for c, k in zip(cols, ("score", "end_q", "end_t")):
+            if k in fin:
+                c.append(fin[k])
         off += segment_rows(Q)
     return torch.stack(cols[0] + cols[1] + cols[2], dim=1)

@@ -5,7 +5,7 @@ engine/ranked.py; there the selection is XLA code, here PyTorch ops).
 The order is the reference tie-break: score descending, then DB index
 ascending (reference: src/opal.h:44-74). Selection is exact:
 
-1. tracker rows become (score, end_q, end_t) per lane on the device
+1. tracker rows become score (and end_q, end_t) per lane on the device
    (kernels.finalize_device; multi_dp emits final values already);
 2. padding lanes are masked through the per-lane DB index
    (DeviceDatabase.lane_indices, -1 = padding);
@@ -90,9 +90,10 @@ def topk_from_handle(tr, ddb, mode, search_type, Q, k):
     track_end = search_type != SEARCH_SCORE
     if tr is None:
         return merge_candidates([], k, track_end)
-    score, end_q, end_t = kernels.finalize_device(
-        tr, ddb.stream.lengths, mode, search_type, Q)
-    cand = select_topk(score, end_q, end_t, ddb.lane_indices, k)
+    cols = kernels.finalize_device(tr, ddb.stream.lengths, mode,
+                                   search_type, Q)
+    cand = select_topk(cols["score"], cols.get("end_q"), cols.get("end_t"),
+                       ddb.lane_indices, k)
     return merge_candidates([cand.cpu().numpy()], k, track_end)
 
 

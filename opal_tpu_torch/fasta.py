@@ -1,4 +1,4 @@
-"""FASTA input (a copy of opal_tpu's pure-Python reader).
+"""FASTA input (a copy of opal_tpu's fasta.py, with its native fast path).
 
 Streaming, memory-bounded FASTA reading with the same observable semantics as
 the reference CLI's reader (reference: src/opal_aligner.cpp:240-301):
@@ -12,6 +12,11 @@ the reference CLI's reader (reference: src/opal_aligner.cpp:240-301):
   of *completed* sequences have been accumulated and a new sequence is about
   to start; the file position is rewound to the start of that new sequence so
   a subsequent call resumes there (reference: src/opal_aligner.cpp:282-289).
+
+Where the rest of a stream fits the residue budget (the usual case: the
+budget is 1 GiB), the whole buffer goes to the native C tokenizer
+(_native.parse_fasta_buffer); the line loop runs only where a budget cut
+falls inside the stream, or where no C compiler is present.
 """
 from __future__ import annotations
 
@@ -19,14 +24,17 @@ from typing import BinaryIO
 
 import numpy as np
 
+from ._native import parse_fasta_buffer
+
 DEFAULT_MAX_RESIDUES = 1073741824  # 1 GiB, reference: src/opal_aligner.cpp:286
 
 
 class PushbackReader:
     """Binary line reader with arbitrary-size byte pushback.
 
-    The chunked reader's "rewind" is un-reading the line that overflowed
-    the residue budget. On a GzipFile a backward seek re-decompresses from
+    The chunked reader's "rewind" is un-reading bytes that overflowed the
+    residue budget (one line on the slow path; a whole probed buffer on
+    the fast path). On a GzipFile a backward seek re-decompresses from
     the START of the file, making a multi-chunk gzipped scan
     O(n_chunks^2); buffering on the Python side makes every input O(n)
     and also drops the per-line tell() overhead. Pending bytes are kept
@@ -52,10 +60,20 @@ class PushbackReader:
         return self._f.readline()
 
     def unread(self, data: bytes) -> None:
-        """Prepend bytes (a line) to the stream."""
+        """Prepend bytes (a line, or a whole probed buffer) to the stream."""
         rest = self._buf[self._off :]
         self._buf = data + rest if rest else data
         self._off = 0
+
+    def read(self, n: int = -1) -> bytes:
+        pend = self._buf[self._off :]
+        self._buf, self._off = b"", 0
+        if n is None or n < 0:
+            return pend + self._f.read()
+        if len(pend) >= n:
+            self._buf = pend[n:]
+            return pend[:n]
+        return pend + self._f.read(n - len(pend))
 
     def close(self):
         return self._f.close()
@@ -80,6 +98,27 @@ def read_fasta_sequences(
     Returns (seqs, eof) or (seqs, names, eof) when return_names is True.
     """
     lut = np.asarray(letter_idx, dtype=np.uint8)
+
+    # Fast path: the rest of the stream, if it fits the residue budget,
+    # through the native tokenizer. A stream longer than the probe is
+    # pushed back untouched and parsed by the exact-semantics line loop
+    # below (budget cut + rewind).
+    if not return_names and hasattr(f, "unread"):
+        # residues <= bytes, so budget + slack bytes always either reach
+        # EOF or contain more than a full budget of residues
+        want = min(max_residues + (1 << 20), 2**62)
+        buf = f.read(want)
+        if len(buf) < want:
+            seqs_fast = parse_fasta_buffer(buf, lut)
+            # the budget cut triggers before starting sequence k iff the
+            # residues completed so far exceed it: no cut over this whole
+            # buffer iff all but the last fit the budget
+            if seqs_fast is not None and (
+                    len(seqs_fast) <= 1
+                    or sum(a.size for a in seqs_fast)
+                    - seqs_fast[-1].size <= max_residues):
+                return seqs_fast, True
+        f.unread(buf)
 
     seqs: list[np.ndarray] = []
     names: list[str] = []
@@ -158,7 +197,15 @@ def open_fasta(path: str):
 
 
 def read_fasta_file(path: str, letter_idx: np.ndarray, return_names: bool = False):
-    """Read an entire FASTA file (no residue budget); gzip transparent."""
+    """Read an entire FASTA file (no residue budget); gzip transparent.
+    Without names, the buffer goes through the native tokenizer where it
+    is available."""
+    if not return_names:
+        with open_fasta(path) as f:
+            buf = f.read()
+        seqs = parse_fasta_buffer(buf, letter_idx)
+        if seqs is not None:
+            return seqs, True
     with open_fasta(path) as f:
         return read_fasta_sequences(
             f, letter_idx, max_residues=2**62, return_names=return_names

@@ -13,14 +13,17 @@ Request fields:
   gap_open / gap_ext                          (default 3 / 1)
   top_k       number of hits to return        (default 10; 0 = all)
   names       true => append the DB FASTA header to each hit
-  align       true => answered with an error line: alignment paths come
-              with a later slice of the port (ROADMAP.md A.7)
+  align       true => each hit also carries its alignment
 
 Response: {"id": ..., "hits": [[db_index, score], ...]} ranked by
-(score desc, index asc); a batch gets one hit list per query. Errors are
+(score desc, index asc); a batch gets one hit list per query. With align,
+each hit is [db_index, score, start_q, start_t, end_q, end_t, cigar]
+(cigar null where no path exists). Errors are
 {"id": ..., "error": "<type>: <message>"}. Batched requests run as stacked
 multi_dp launches (engine/search.py::search_database_multi_arrays), and
-the top k are selected on the device.
+the top k are selected on the device. An align request scores with ends
+in one such stacked pass, then reconstructs only each query's winners on
+the host (engine/search.py::alignment_pass).
 
 Run: ``python -m opal_tpu_torch.serve db.fasta [--matrix NAME]
 [--block-size N] [--device cuda|cpu]``. With ``--listen PORT`` the same
@@ -40,12 +43,15 @@ import numpy as np
 from .constants import MODE_CODES, MODE_SW, SEARCH_SCORE, SEARCH_SCORE_END
 from .engine.search import (
     Engine,
+    alignment_pass,
     search_database_arrays,
     search_database_multi_arrays,
 )
 from .fasta import read_fasta_file
 from .matrices import ScoreMatrix
 from .ranking import rank_scores
+from .render import ops_to_cigar
+from .result import SearchResult
 
 
 class Server:
@@ -168,10 +174,7 @@ class Server:
         and calls this once)."""
         mode, go, ge, top_k, align, with_names = fields
         if align:
-            raise NotImplementedError(
-                "align=true needs full alignment, which comes with a later "
-                "slice of the port (ROADMAP.md A.7); scores are available "
-                "without align")
+            return self._align_answers(qs, mode, go, ge, top_k, with_names)
         outs = search_database_multi_arrays(
             qs, self.ddb, go, ge, self.sm.matrix, mode=mode,
             search_type=SEARCH_SCORE, engine=self.engine, top_k=top_k)
@@ -185,6 +188,50 @@ class Server:
             answers.append([
                 [int(i), int(s)] + ([self.names[int(i)]] if with_names else [])
                 for i, s in pairs
+            ])
+        return answers
+
+    def _align_answers(self, qs, mode, go, ge, top_k, with_names) -> list:
+        """align=true: one stacked score+end pass for the whole batch (top
+        k selected on the device), then each query aligns only its ranked
+        winners on the host (opal_tpu/serve.py:173-227)."""
+        if ge > go:
+            raise ValueError(
+                "alignment requires gap_ext <= gap_open "
+                "(scores are available without align)")
+        outs = search_database_multi_arrays(
+            qs, self.ddb, go, ge, self.sm.matrix, mode=mode,
+            search_type=SEARCH_SCORE_END, engine=self.engine, top_k=top_k)
+        answers = []
+        for q, out in zip(qs, outs):
+            if top_k:
+                order = [int(i) for i in out["index"]]
+                rows = {int(out["index"][j]): (
+                    int(out["score"][j]), int(out["end_q"][j]),
+                    int(out["end_t"][j])) for j in range(len(order))}
+            else:
+                order = [int(i) for i in rank_scores(out["score"], top_k)]
+                rows = {i: (int(out["score"][i]), int(out["end_q"][i]),
+                            int(out["end_t"][i])) for i in order}
+            results = {}
+            for i in order:
+                r = SearchResult()
+                r.score_set = 1
+                r.score, r.end_location_query, r.end_location_target = \
+                    rows[i]
+                results[i] = r
+            alignment_pass(q, self.db, go, ge, self.sm.matrix, mode,
+                           results, order)
+            answers.append([
+                [i, results[i].score,
+                 int(results[i].start_location_query),
+                 int(results[i].start_location_target),
+                 int(results[i].end_location_query),
+                 int(results[i].end_location_target),
+                 ops_to_cigar(results[i].alignment)
+                 if results[i].alignment is not None else None]
+                + ([self.names[i]] if with_names else [])
+                for i in order
             ])
         return answers
 

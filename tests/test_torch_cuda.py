@@ -1,20 +1,25 @@
-"""ragged_dp and multi_dp on the card: the CUDA kernels against their plain
-versions, and the serving path on the card against the CPU.
+"""ragged_dp (with and without its overflow-flag rows) and multi_dp on the
+card: the CUDA kernels against their plain versions, and the serving path,
+the adaptive search and the CLI on the card against the CPU.
 
 These tests need an NVIDIA GPU with nvcc and skip without one. They import
 neither JAX nor opal_tpu, so they also run where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import os
+import re
 
 import numpy as np
 import pytest
 import torch
 
-from opal_tpu_torch.constants import MODE_OV, MODE_SW
+from opal_tpu_torch import cli
+from opal_tpu_torch.constants import MODE_NW, MODE_OV, MODE_SW
 from opal_tpu_torch.engine import batching, kernels
 from opal_tpu_torch.engine.search import (
     Engine,
+    search_database,
     search_database_arrays,
     search_database_multi_arrays,
 )
@@ -170,3 +175,62 @@ def test_multi_search_on_card_matches_cpu(cuda, top_k):
             assert set(a) == set(b)
             for k in b:
                 np.testing.assert_array_equal(a[k], b[k])
+
+
+@pytest.mark.parametrize("go,ge", [(3, 1), (2, 2), (0, 0), (1, 3)])
+@pytest.mark.parametrize("x", [0, 1])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_flag_kernel_matches_plain(cuda, mode, x, go, ge):
+    """ragged_dp with its flag rows: queries of 1, 16, 17 and 110 rows
+    (partial last strips), partial first blocks, and the matrix scaled by
+    1, 40 and 400 so that the flags reach 16 and 32 bits."""
+    matrix = ScoreMatrix.blosum50().matrix
+    rng = np.random.default_rng(100 + 10 * mode + x)
+    for Q, scale in ((1, 1), (16, 40), (17, 400), (110, 40)):
+        profile = torch.from_numpy(kernels.build_profile(
+            scale * matrix[rng.integers(0, 24, size=Q)].T)).to(cuda)
+        stream = _stream(Q + go, 300, 250, 96, 24, cuda)
+        launches = kernels.LAUNCHES["ragged_dp_flags"]
+        got = kernels.ragged_score(profile, stream, mode, x, go, ge, True)
+        assert kernels.LAUNCHES["ragged_dp_flags"] > launches
+        want = kernels.ragged_score_plain(profile, stream, mode, x, go, ge,
+                                          True)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_adaptive_search_on_card_matches_cpu(cuda):
+    sm = ScoreMatrix.blosum50()
+    rng = np.random.default_rng(13)
+    query = rng.integers(0, 24, size=110).astype(np.uint8)
+    db = [rng.integers(0, 24, size=int(L)).astype(np.uint8)
+          for L in rng.integers(1, 900, size=1500)]
+    for mode, x in ((MODE_SW, 0), (MODE_NW, 1)):
+        engines = [Engine(block_size=128, precision="adaptive"),
+                   Engine(device="cpu", block_size=128, precision="adaptive")]
+        launches = kernels.LAUNCHES["ragged_dp_flags"]
+        card, cpu = (search_database(query, db, 3, 1, sm.matrix * 20,
+                                     mode=mode, search_type=x, engine=e)
+                     for e in engines)
+        assert kernels.LAUNCHES["ragged_dp_flags"] > launches
+        assert [(r.score, r.end_location_query, r.end_location_target)
+                for r in card] == [(r.score, r.end_location_query,
+                                    r.end_location_target) for r in cpu]
+        a, b = (e.last_search_stats for e in engines)
+        assert a["precision_bits"] == b["precision_bits"]
+        assert a["precision_counts"] == b["precision_counts"]
+        for k in ("rerun_mask_stage8", "rerun_mask_stage16"):
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_cli_x2_on_card_matches_cpu(cuda, capsys):
+    here = os.path.dirname(os.path.abspath(__file__))
+    args = ["-x", "2", "-a", "OV", "--block-size", "16",
+            os.path.join(here, "port_data", "O74807.fasta"),
+            os.path.join(here, "port_data", "uniprot_sprot15.fasta")]
+    outs = []
+    for dev in ("cuda", "cpu"):
+        assert cli.main(["--device", dev] + args) == 0
+        out = capsys.readouterr().out
+        outs.append(out[: out.index("\nCpu time")])
+    assert outs[0] == outs[1]
+    assert len(re.findall(r"^#\d+: ", outs[0], re.M)) == 15

@@ -1,5 +1,6 @@
-"""The port stands alone: opal_tpu_torch and chip_smoke.py import nothing of
-JAX or opal_tpu, importing the package builds and touches nothing, and the
+"""The port stands alone: opal_tpu_torch (its CLI, server, cascade and
+traceback included) and chip_smoke.py import nothing of JAX or opal_tpu,
+importing the package builds and touches nothing, and the
 default (CUDA) entry points raise instead of running on the CPU when CUDA
 is absent."""
 import ast
@@ -44,6 +45,9 @@ def test_no_jax_or_opal_tpu_imports(path):
 def test_package_import_pulls_in_no_jax():
     code = ("import sys; import opal_tpu_torch; "
             "import opal_tpu_torch.engine.search; "
+            "import opal_tpu_torch.cli, opal_tpu_torch.serve; "
+            "import opal_tpu_torch.engine.cascade; "
+            "import opal_tpu_torch.traceback, opal_tpu_torch.checkpoint; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'opal_tpu')))")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -61,8 +61,7 @@ def _finalized(tr, blocks, mode, x, Q):
     one {col: [B] array} per block."""
     lengths = torch.from_numpy(np.stack([b.lengths for b in blocks]))
     cols = kernels.finalize_device(torch.from_numpy(tr), lengths, mode, x, Q)
-    return [{k: c[bi].numpy() for k, c in zip(("score", "end_q", "end_t"),
-                                               cols) if c is not None}
+    return [{k: c[bi].numpy() for k, c in cols.items()}
             for bi in range(len(blocks))]
 
 

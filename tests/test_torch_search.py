@@ -3,8 +3,8 @@
 Both engines search the same random protein database through
 search_database_arrays and search_database; every field must be equal
 (integer DP, no tolerance). Covers x0/x1, top_k, skip semantics, several
-block sizes with a partial first block, a resident database and the parts
-of the API that belong to later slices (x2, the adaptive cascade).
+block sizes with a partial first block, a resident database, and the
+API's x2 and adaptive-precision entry points.
 """
 import numpy as np
 import pytest
@@ -175,26 +175,50 @@ def test_empty_database(problem, jax_engine):
         _assert_cols_equal(got, want)
 
 
-def test_later_slices_raise(problem):
+def test_later_slices_raise(problem, jax_engine):
+    """The entry points that raised until x2 and the cascade were ported
+    (the name is kept): x2 and precision="adaptive" now answer as
+    opal_tpu's do."""
     query, db, matrix = problem
-    engine = Engine(device="cpu")
-    with pytest.raises(NotImplementedError):
-        search_database(query, db, 3, 1, matrix,
-                        search_type=SEARCH_ALIGNMENT, engine=engine)
-    with pytest.raises(NotImplementedError):
+    engine = Engine(device="cpu", block_size=16)
+    got = search_database(query, db, 3, 1, matrix,
+                          search_type=SEARCH_ALIGNMENT, engine=engine)
+    want = jax_search_database(query, db, 3, 1, matrix,
+                               search_type=SEARCH_ALIGNMENT,
+                               engine=jax_engine)
+    assert [_fields(r)[:6] + (r.alignment_length,) for r in got] == [
+        _fields(r)[:6] + (r.alignment_length,) for r in want]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(
+            np.asarray(a.alignment if a.alignment is not None else []),
+            np.asarray(b.alignment if b.alignment is not None else []))
+    _assert_cols_equal(
         search_database_arrays(query, db, 3, 1, matrix,
-                               search_type=SEARCH_ALIGNMENT, engine=engine)
-    with pytest.raises(NotImplementedError):
-        search_database_multi_arrays([query, query[:20]], db, 3, 1, matrix,
-                                     search_type=SEARCH_ALIGNMENT,
-                                     engine=engine)
-    with pytest.raises(NotImplementedError):
-        Engine(device="cpu", precision="adaptive")
-    # multi-query search is no later slice: it answers (tests/
-    # test_torch_multi.py holds it against opal_tpu)
-    out = search_database_multi_arrays([query, query[:20]], db, 3, 1,
-                                       matrix, engine=engine)
-    assert [len(o["score"]) for o in out] == [len(db), len(db)]
+                               search_type=SEARCH_ALIGNMENT, engine=engine),
+        jax_search_database_arrays(query, db, 3, 1, matrix,
+                                   search_type=SEARCH_ALIGNMENT,
+                                   engine=jax_engine))
+    pair = [query, query[:20]]
+    for prec in ("int32", "adaptive"):
+        eng = Engine(device="cpu", block_size=16, precision=prec)
+        for x in (SEARCH_SCORE, SEARCH_ALIGNMENT):
+            outs = search_database_multi_arrays(pair, db, 3, 1, matrix,
+                                                search_type=x, engine=eng,
+                                                top_k=5)
+            for q, o in zip(pair, outs):
+                _assert_cols_equal(o, jax_search_database_arrays(
+                    q, db, 3, 1, matrix, search_type=x, engine=jax_engine,
+                    top_k=5))
+    adaptive = Engine(device="cpu", block_size=16, precision="adaptive")
+    jax_adaptive = JaxEngine(backend="xla", block_size=64,
+                             precision="adaptive")
+    got = search_database(query, db, 3, 1, matrix, engine=adaptive)
+    want = jax_search_database(query, db, 3, 1, matrix, engine=jax_adaptive)
+    assert [_fields(r) for r in got] == [_fields(r) for r in want]
+    assert (adaptive.last_search_stats["precision_bits"]
+            == jax_adaptive.last_search_stats["precision_bits"])
+    with pytest.raises(ValueError):
+        Engine(device="cpu", precision="int8")
 
 
 def test_inputs_outside_the_kernel_raise(problem):

@@ -1,8 +1,7 @@
 """The port's server (opal_tpu_torch.serve, on the CPU) against opal_tpu's
 (opal_tpu.serve.Server with its xla engine): both load
 tests/port_data/uniprot_sprot15.fasta and answer the same request script,
-line for line. The one expected difference is align=true, which the port
-answers with the protocol's error line until full alignment is ported."""
+line for line, align=true requests (paths as CIGAR strings) included."""
 import io
 import json
 import os
@@ -78,11 +77,6 @@ def _script():
 def _assert_lines_equal(got, want, lines):
     assert len(got) == len(want) == len(lines)
     for g, w, line in zip(got, want, lines):
-        if json.loads(line).get("align") if line.startswith("{") else False:
-            resp = json.loads(g)
-            assert resp["error"].startswith("NotImplementedError"), g
-            assert resp["id"] == json.loads(w)["id"]
-            continue
         assert g == w, line
 
 
@@ -116,6 +110,30 @@ def test_respond_many_matches_jax(servers):
     # and each equals the per-line answer of a cold server
     mine._cache.clear()
     assert got == [mine._respond(line) for line in lines]
+
+
+@pytest.mark.parametrize("mode", ["SW", "NW", "HW", "OV"])
+def test_align_matches_jax(servers, mode):
+    """align=true: one stacked score+end pass, then the winners' paths on
+    the host; start, end and CIGAR of every hit equal opal_tpu's."""
+    mine, theirs = servers
+    seqs = ["".join(c.splitlines()[1:])
+            for c in open(DB).read().split(">")[1:]]
+    reqs = [{"id": 1, "queries": [seqs[2][5:60], seqs[9][:40], seqs[0][:25]],
+             "mode": mode, "align": True, "top_k": 4},
+            {"id": 2, "query": seqs[4][30:90], "mode": mode, "align": True,
+             "top_k": 0, "names": True},
+            {"id": 3, "query": seqs[1][:30], "mode": mode, "align": True,
+             "gap_open": 1, "gap_ext": 2}]
+    lines = [json.dumps(r) for r in reqs]
+    for srv in servers:
+        srv._cache.clear()
+    got = [mine._respond(line) for line in lines]
+    assert got == [theirs._respond(line) for line in lines]
+    hits = json.loads(got[0])["hits"]
+    assert len(hits) == 3 and all(len(h) == 4 for h in hits)
+    assert any(hit[6] for h in hits for hit in h)  # some CIGAR strings
+    assert "error" in json.loads(got[2])  # ge > go cannot align
 
 
 def test_from_sequences_equals_fasta_constructor(servers):
