@@ -38,7 +38,23 @@ the last line:
              search_database(search_type=2, align_top_k=10) per query;
 9. cli     - python -m opal_tpu_torch.cli as subprocesses on a FASTA copy
              of the database: -s -x 0 (trailer, and a --profile run for the
-             card's idle share) and -x 2 --align-top 10 against the API.
+             card's idle share) and -x 2 --align-top 10 against the API;
+10. kernel_panels - the panel role of ragged_dp (K6) against the plain
+             chain of ragged_panel_plain, panel by panel, exact: 4 modes x
+             x0/x1 x flags off and on, gaps (3,1), (2,2), (0,0), (1,3),
+             queries of 17 to 1,000 rows in 16-, 32- and 48-row panels (tails
+             of 1 row among them), partial first blocks, several waves, and a
+             100,000-residue query on the resident database's first block;
+11. kernel_grouped - grouped_score (K7, ragged_dp over dense [G, T, B]
+             blocks) against grouped_score_plain, exact, and timed on 64
+             blocks of the resident database;
+12. long_query - a 100,000-residue query (SW x0) against the resident
+             database through search_database_arrays in panels: seconds,
+             GCUPS, kernel ms per launch and per wave, launches, the bound;
+             the same search at PANEL_ROWS 1,024, 4,096, 16,384 and in one
+             sweep, all equal; a 16,000-residue query in 4 modes at x1,
+             panels equal to the one sweep; one served batch with that query
+             beside the 15 uniprot_sprot15 queries, equal to the API.
 
 Then the kernels line and the last line {"ok": true, "device": {...}}.
 Needs CUDA, nvcc and the repository checkout around this file; imports
@@ -104,17 +120,19 @@ def op_bound_ms(cells, maxes=CELL_MAXES, adds=CELL_ADDS):
 
 def ptxas_summary(log):
     """{instantiation: "N registers, S spill bytes"} from ptxas's report;
-    ragged_dp's instantiations read mode<M>_end<E>_flags<F>, multi_dp's
-    mode<M>_end<E>."""
+    ragged_dp's instantiations read mode<M>_end<E>_flags<F> (and _panel for
+    its panel role), multi_dp's mode<M>_end<E>."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            t = re.search(r"ILi(\d+)ELb(\d)E(?:Lb(\d)E)?", m.group(1))
+            t = re.search(r"ILi(\d+)ELb(\d)E(?:Lb(\d)E)?(?:Lb(\d)E)?",
+                          m.group(1))
             name = m.group(1)
             if t:
                 name = f"mode{t.group(1)}_end{t.group(2)}" + (
-                    f"_flags{t.group(3)}" if t.group(3) else "")
+                    f"_flags{t.group(3)}" if t.group(3) else "") + (
+                    "_panel" if t.group(4) == "1" else "")
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and name:
             out[name] = f"{m.group(1)} spill bytes"
@@ -1097,6 +1115,389 @@ def phase_cli(sm, srv, ascii_db, smi):
     return res
 
 
+def panel_plan(Q, rows):
+    """((row0, rows), ...) of a Q-row query in `rows`-row panels."""
+    return tuple((r0, min(rows, Q - r0)) for r0 in range(0, Q, rows))
+
+
+def compare_panels(profile, stream, mode, x, go, ge, with_flags, panels):
+    """(mismatching entries, max |diff|) of the panel kernel's rows against
+    the plain chain of ragged_panel_plain, over every panel."""
+    import torch
+
+    from opal_tpu_torch.engine import kernels
+
+    got = kernels.ragged_panel_score(profile, stream, mode, x, go, ge,
+                                     with_flags, panels=panels)
+    top, bad, err = None, 0, 0
+    for (row0, rows), g in zip(panels, got):
+        w, top = kernels.ragged_panel_plain(profile, stream, mode, x, go, ge,
+                                            with_flags, row0, rows, top)
+        diff = (g.to(torch.int64) - w.to(torch.int64)).abs()
+        bad += int((diff != 0).sum())
+        err = max(err, int(diff.max()) if diff.numel() else 0)
+    torch.cuda.synchronize()
+    return bad, err
+
+
+def phase_kernel_panels(matrix, dev):
+    """The panel role of ragged_dp (K6) vs the plain chain on random
+    streams."""
+    import torch
+
+    from opal_tpu_torch.engine import kernels
+
+    rng = np.random.default_rng(2027)
+    A = matrix.shape[0]
+    # (gaps, (query rows, panel rows), longest target): 1-row tails at
+    # 17/16, 33/32 and 97/48; the plain version's row loop (gap_ext >
+    # gap_open) is slow, so that pair runs small
+    plan = (((3, 1), ((17, 16), (33, 32), (80, 48), (1000, 48)), 300),
+            ((2, 2), ((33, 16), (97, 48)), 250),
+            ((0, 0), ((33, 16), (97, 48)), 250),
+            ((1, 3), ((17, 16), (33, 32)), 120))
+    n_cases = mismatches = max_err = 0
+    t0 = time.perf_counter()
+    k = 0
+    for (go, ge), shapes, tmax in plan:
+        for Q, rows in shapes:
+            for mode in range(4):
+                for x in (0, 1):
+                    for flags in (False, True):
+                        if Q > 500 and flags != bool((mode + x) % 2):
+                            continue  # the plain chain is slow here
+                        scale = (1, 40)[k % 2] if flags else 1
+                        query = rng.integers(0, A, size=Q)
+                        profile = torch.from_numpy(kernels.build_profile(
+                            scale * matrix[query].T)).to(dev)
+                        B = (256, 200)[k % 2]
+                        k += 1
+                        stream = random_stream(rng, 3 * B - 57, tmax, B, A,
+                                               dev)
+                        bad, err = compare_panels(profile, stream, mode, x,
+                                                  go, ge, flags,
+                                                  panel_plan(Q, rows))
+                        n_cases += 1
+                        mismatches += bad
+                        max_err = max(max_err, err)
+                        if bad:
+                            emit({"phase": "kernel_panels", "mismatch": {
+                                "mode": mode, "x": x, "go": go, "ge": ge,
+                                "Q": Q, "rows": rows, "flags": flags,
+                                "B": B, "entries": bad}})
+    # several launches (waves) over one stream, panels inside each
+    profile = torch.from_numpy(kernels.build_profile(
+        matrix[rng.integers(0, A, size=110)].T)).to(dev)
+    stream = random_stream(rng, 2000, 1500, 128, A, dev)
+    wave_cells = kernels.WAVE_CELLS
+    kernels.WAVE_CELLS = int(stream.host_offsets[-1]) // 4
+    try:
+        for mode in range(4):
+            for flags in (False, True):
+                before = kernels.LAUNCHES["ragged_dp_panel"]
+                bad, err = compare_panels(profile, stream, mode, 1, 3, 1,
+                                          flags, panel_plan(110, 32))
+                check(kernels.LAUNCHES["ragged_dp_panel"] - before > 4,
+                      "panel wave case ran in one wave")
+                n_cases += 1
+                mismatches += bad
+                max_err = max(max_err, err)
+    finally:
+        kernels.WAVE_CELLS = wave_cells
+    res = {"phase": "kernel_panels", "kernel": "ragged_dp_panel",
+           "cases": n_cases, "mismatches": mismatches,
+           "max_abs_err": max_err, "tolerance": 0,
+           "seconds": round(time.perf_counter() - t0, 1)}
+    emit(res)
+    check(mismatches == 0, "the panel kernel disagrees with "
+          "ragged_panel_plain")
+    return res
+
+
+def dense_blocks(ddb, first, G):
+    """G consecutive blocks of the resident database as grouped_score's
+    dense input on its device: letters [G, T, B] int8 (T the longest
+    t_pad, PAD_LETTER padding) and lengths [G, B] int32."""
+    import torch
+
+    from opal_tpu_torch.engine import batching
+
+    blocks = ddb.blocks[first:first + G]
+    T = max(b.t_pad for b in blocks)
+    letters = np.full((G, T, ddb.block_size), batching.PAD_LETTER, np.int8)
+    for g, b in enumerate(blocks):
+        letters[g, : b.t_pad] = b.letters
+    lengths = np.stack([b.lengths for b in blocks]).astype(np.int32)
+    return (torch.from_numpy(letters).to(ddb.device),
+            torch.from_numpy(lengths).to(ddb.device))
+
+
+def phase_kernel_grouped(sm, ddb, smi):
+    """grouped_score (K7) vs grouped_score_plain on random dense blocks,
+    then the entry point alone on 64 blocks of the resident database."""
+    import torch
+
+    from opal_tpu_torch.constants import MODE_SW, SEARCH_SCORE
+    from opal_tpu_torch.engine import kernels
+
+    matrix = sm.matrix
+    rng = np.random.default_rng(2028)
+    A = matrix.shape[0]
+    t0 = time.perf_counter()
+    n_cases = mismatches = max_err = 0
+    for mode in range(4):
+        for x in (0, 1):
+            for flags in (False, True):
+                G, T, B = 3, 201, (256, 200)[n_cases % 2]
+                lengths = rng.integers(0, T + 1, size=(G, B)).astype(
+                    np.int32)
+                letters = rng.integers(0, A, size=(G, T, B)).astype(np.int8)
+                profile = torch.from_numpy(kernels.build_profile(
+                    matrix[rng.integers(0, A, size=45)].T)).to(ddb.device)
+                args = (profile, torch.from_numpy(letters).to(ddb.device),
+                        torch.from_numpy(lengths).to(ddb.device), mode, x,
+                        3, 1, flags)
+                got = kernels.grouped_score(*args)
+                want = kernels.grouped_score_plain(*args)
+                torch.cuda.synchronize()
+                diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+                n_cases += 1
+                mismatches += int((diff != 0).sum())
+                max_err = max(max_err, int(diff.max()))
+    check(mismatches == 0, "grouped_score disagrees with "
+          "grouped_score_plain")
+    # the entry point on 64 blocks of the database around its median
+    # length, O74807, SW x0
+    query = _o74807(sm)
+    profile = torch.from_numpy(kernels.build_profile(
+        matrix[query.astype(np.int64)].T)).to(ddb.device)
+    G = min(64, len(ddb.blocks))
+    first = (len(ddb.blocks) - G) // 2
+    letters, lengths = dense_blocks(ddb, first, G)
+    args = (profile, letters, lengths, MODE_SW, SEARCH_SCORE, 3, 1)
+    kernels.reset_counts()
+    got = kernels.grouped_score(*args)
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["ragged_dp_grouped"]
+    check(launches > 0 and sum(kernels.PLAIN_CALLS.values()) == 0,
+          "grouped_score launched no ragged_dp")
+    want = kernels.grouped_score_plain(*args)
+    diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+    n_cases += 1
+    mismatches += int((diff != 0).sum())
+    max_err = max(max_err, int(diff.max()))
+    check(mismatches == 0, "grouped_score disagrees with "
+          "grouped_score_plain on database blocks")
+    ms = time_cuda(lambda: kernels.grouped_score(*args), 5)
+    plain_ms = time_cuda(lambda: kernels.grouped_score_plain(*args), 1)
+    cells = len(query) * int(lengths.sum())
+    ops_ms, _, _ = op_bound_ms(cells)
+    bytes_ms = (letters.numel() + 4 * lengths.numel() * 2
+                + 4 * profile.numel()) / HBM_BYTES_PER_S * 1e3
+    res = {"phase": "kernel_grouped", "kernel": "ragged_dp_grouped",
+           "cases": n_cases, "mismatches": mismatches,
+           "max_abs_err": max_err, "tolerance": 0,
+           "G": G, "T": int(letters.shape[1]), "B": ddb.block_size,
+           "first_block": first, "cells": cells, "launches": launches,
+           "ms": ms, "gcups": cells / ms / 1e6, "plain_ms": plain_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "card": smi, "seconds": round(time.perf_counter() - t0, 1)}
+    emit(res)
+    return res
+
+
+def long_query(sm, n, seed):
+    """A query of n residues drawn with numpy from synth.FREQ over
+    synth.AA (seed `seed`): (letter indices, ASCII string)."""
+    from opal_tpu_torch import synth
+
+    rng = np.random.default_rng(seed)
+    ascii_q = rng.choice(np.frombuffer(synth.AA.encode(), np.uint8), size=n,
+                         p=synth.FREQ)
+    return sm.letter_index()[ascii_q], ascii_q.tobytes().decode()
+
+
+def phase_long_query(sm, srv, smi):
+    """Long queries through the panels at full scale (see the module
+    docstring, phase 12)."""
+    import torch
+
+    from opal_tpu_torch.constants import MODE_SW, SEARCH_SCORE
+    from opal_tpu_torch.engine import kernels
+    from opal_tpu_torch.engine.search import search_database_arrays
+    from opal_tpu_torch.ranking import rank_scores
+
+    ddb, engine, matrix = srv.ddb, srv.engine, sm.matrix
+    total = ddb.total_residues
+    query, _ = long_query(sm, 100_000, 100_000)
+    Q = len(query)
+    waves = kernels.plan_waves(ddb.stream.host_offsets)
+    wave_residues = [int(sum(int(ddb.blocks[b].lengths.sum())
+                             for b in range(f, f + n))) for f, n in waves]
+    default_rows = kernels.PANEL_ROWS
+    res = {"phase": "long_query", "sequences": ddb.n, "residues": total,
+           "Q": Q, "seed": 100_000, "panel_rows": default_rows,
+           "waves": len(waves), "card": smi}
+
+    def search(q, rows, mode=MODE_SW, x=SEARCH_SCORE):
+        """(seconds, columns, per-launch CUDA events) of one
+        search_database_arrays call with PANEL_ROWS = rows (None: one
+        sweep)."""
+        events = []
+        wrapped = {}
+        for name in ("ragged_panel_score", "ragged_score"):
+            fn = wrapped[name] = getattr(kernels, name)
+            setattr(kernels, name, lambda *a, _fn=fn, **k: _fn(
+                *a, events=events, **k))
+        kernels.PANEL_ROWS = (rows if rows is not None
+                              else -(-len(q) // 16) * 16)
+        try:
+            t = time.perf_counter()
+            out = search_database_arrays(q, ddb, 3, 1, matrix, mode=mode,
+                                         search_type=x, engine=engine)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        finally:
+            kernels.PANEL_ROWS = default_rows
+            for name, fn in wrapped.items():
+                setattr(kernels, name, fn)
+        return dt, out, events
+
+    def kernel_times(events):
+        """(sum of launch ms, first start to last end ms, per-wave ms)"""
+        ms = [(w, a.elapsed_time(b)) for w, _, a, b in events]
+        per_wave = [sum(m for w2, m in ms if w2 == w)
+                    for w in range(len(waves))]
+        return (sum(m for _, m in ms),
+                events[0][2].elapsed_time(events[-1][3]), per_wave, ms)
+
+    # the timed run at the default panel height
+    kernels.reset_counts()
+    sec, out, events = search(query, default_rows)
+    launches = kernels.LAUNCHES["ragged_dp_panel"]
+    n_panels = len(kernels.plan_panels(Q))
+    check(launches == len(waves) * n_panels,
+          f"{launches} panel launches, not {len(waves)} x {n_panels}")
+    check(kernels.LAUNCHES["ragged_dp"] == 0
+          and sum(kernels.PLAIN_CALLS.values()) == 0,
+          "the long query ran another kernel or a plain version")
+    kms, span_ms, per_wave, launch_ms = kernel_times(events)
+    cells = Q * total
+    ops_ms, _, _ = op_bound_ms(cells)
+    bytes_ms = (ddb.stream.letters.numel() + 4 * ddb.stream.lengths.numel()
+                * (1 + n_panels) + 4 * Q * 32) / HBM_BYTES_PER_S * 1e3
+    score = out["score"]
+    check(score.shape == (ddb.n,) and int(score.min()) >= 0,
+          "long-query SW scores malformed")
+    res.update({
+        "search_s": sec, "gcups": cells / sec / 1e9, "cells": cells,
+        "launches": launches, "panels": n_panels,
+        "kernel_ms": kms, "kernel_span_ms": span_ms,
+        "kernel_gcups": cells / kms / 1e6,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "kernel_share_of_bound": max(ops_ms, bytes_ms) / kms,
+        "per_wave": [{"blocks": n, "residues": r, "ms": m,
+                      "gcups": Q * r / m / 1e6,
+                      "launch_ms_min": min(x for w2, x in launch_ms
+                                           if w2 == w),
+                      "launch_ms_max": max(x for w2, x in launch_ms
+                                           if w2 == w)}
+                     for w, ((f, n), r, m) in enumerate(
+                         zip(waves, wave_residues, per_wave))]})
+    emit({"phase": "long_query", "timed": {k: res[k] for k in (
+        "search_s", "gcups", "launches", "kernel_ms", "bound_ms")}})
+
+    # the same search at other panel heights and in one sweep: equal
+    # columns; the times pick PANEL_ROWS
+    sweep = {}
+    for rows in (None, 1024, 4096, 16384):
+        if rows == default_rows:
+            sweep[rows] = (sec, kms, launches)
+            continue
+        kernels.reset_counts()
+        s_, o_, ev = search(query, rows)
+        check(all(np.array_equal(o_[k], out[k]) for k in out),
+              f"Q=100,000 at PANEL_ROWS {rows} differs")
+        sweep[rows] = (s_, kernel_times(ev)[0],
+                       sum(kernels.LAUNCHES.values()))
+        emit({"phase": "long_query", "panel_rows": rows or "one sweep",
+              "search_s": s_, "kernel_ms": sweep[rows][1]})
+    res["panel_rows_sweep"] = {str(k or "one_sweep"): {
+        "search_s": v[0], "kernel_ms": v[1], "launches": v[2]}
+        for k, v in sweep.items()}
+
+    # the panel kernel against the plain chain at Q = 100,000 on the
+    # database's first block (4 modes x x0/x1), and both timed there
+    sub = kernels.pack_stream([ddb.blocks[0].letters],
+                              [ddb.blocks[0].lengths], ddb.block_size,
+                              ddb.device)
+    profile = engine._backend.prepare_query(
+        matrix[query.astype(np.int64)].T, 3, 1)
+    panels = kernels.plan_panels(Q)
+    bad = err = 0
+    for mode in range(4):
+        for x in (0, 1):
+            b_, e_ = compare_panels(profile, sub, mode, x, 3, 1, False,
+                                    panels)
+            bad += b_
+            err = max(err, e_)
+    check(bad == 0, "the panel kernel disagrees with the plain chain at "
+          "Q = 100,000 on the first block")
+
+    def plain_chain():
+        top = None
+        for row0, rows in panels:
+            _, top = kernels.ragged_panel_plain(profile, sub, MODE_SW, 0, 3,
+                                                1, False, row0, rows, top)
+
+    res.update({
+        "sub_cases": 8, "sub_mismatches": bad, "max_abs_err": err,
+        "tolerance": 0, "sub_residues": int(ddb.blocks[0].lengths.sum()),
+        "sub_kernel_ms": time_cuda(lambda: kernels.ragged_panel_score(
+            profile, sub, MODE_SW, 0, 3, 1, panels=panels), 3),
+        "sub_plain_ms": time_cuda(plain_chain, 1)})
+
+    # 16,000 residues, 4 modes at x1: panels equal the one sweep
+    q16, text16 = long_query(sm, 16_000, 16_000)
+    res["q16000"] = {}
+    for mode in range(4):
+        s_p, o_p, _ = search(q16, default_rows, mode, 1)
+        s_1, o_1, _ = search(q16, None, mode, 1)
+        check(set(o_p) == set(o_1) and all(
+            np.array_equal(o_p[k], o_1[k]) for k in o_1),
+            f"Q=16,000 mode {mode} x1: panels differ from the one sweep")
+        res["q16000"][mode] = {"panels_s": s_p, "one_sweep_s": s_1}
+
+    # one served batch: the 16,000-residue query beside the 15 queries
+    texts = read_queries(os.path.join(HERE, "tests", "port_data",
+                                      "uniprot_sprot15.fasta"))
+    line = json.dumps({"id": "long", "queries": texts + [text16],
+                       "top_k": 10})
+    srv._cache.clear()
+    kernels.reset_counts()
+    t = time.perf_counter()
+    got = json.loads(srv._respond(line))
+    torch.cuda.synchronize()
+    res["serve_batch_s"] = time.perf_counter() - t
+    res["serve_launches"] = dict(kernels.LAUNCHES)
+    check(kernels.LAUNCHES["multi_dp"] > 0
+          and kernels.LAUNCHES["ragged_dp_panel"] > 0,
+          "the served batch did not stack the short queries and run the "
+          "long one in panels")
+    check("hits" in got and len(got["hits"]) == 16, "served batch "
+          "malformed")
+    for i, q in enumerate([srv._encode_query(tx) for tx in texts] + [q16]):
+        full = search_database_arrays(q, ddb, 3, 1, matrix, engine=engine)
+        want = [[int(j), int(full["score"][j])]
+                for j in rank_scores(full["score"], 10)]
+        check(got["hits"][i] == want, f"served query {i} differs from the "
+              "API")
+    emit(res)
+    return res
+
+
 def idle_share(trace_path):
     """The card's busy and idle share within a torch.profiler Chrome trace:
     the union of kernel intervals over the span from the first to the last
@@ -1168,6 +1569,9 @@ def main():
     casc = phase_cascade(sm, srv.engine, srv.ddb, smi)
     phase_serve_align(srv, smi)
     phase_cli(sm, srv, ascii_db, smi)
+    kern_panels = phase_kernel_panels(sm.matrix, dev)
+    grouped = phase_kernel_grouped(sm, srv.ddb, smi)
+    longq = phase_long_query(sm, srv, smi)
 
     emit({"kernels": [{
         "name": "ragged_dp", "route": "cuda",
@@ -1222,6 +1626,44 @@ def main():
                     f"{casc['blocks']} blocks",
         "bound_ms": casc["modes"]["SW"]["bound_ms"],
         "bound_by": casc["modes"]["SW"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "ragged_dp_panel", "route": "cuda",
+        "source": "opal_tpu_torch/engine/csrc/ragged_dp.cu",
+        "replaces": "opal_tpu/engine/pallas_kernels.py:959:"
+                    "build_pallas_panel_fn_raw",
+        "launches": longq["launches"],
+        "checked_cases": kern_panels["cases"] + longq["sub_cases"],
+        "mismatches": kern_panels["mismatches"] + longq["sub_mismatches"],
+        "max_abs_err": max(kern_panels["max_abs_err"],
+                           longq["max_abs_err"]),
+        "ms": longq["kernel_ms"],
+        "ms_at": f"SW x0, a {longq['Q']}-residue query x the whole "
+                 f"database, {longq['panels']} panels x {longq['waves']} "
+                 "waves",
+        "plain_ms": longq["sub_plain_ms"],
+        "plain_at": f"the same query on the first block "
+                    f"({longq['sub_residues']} residues), where the kernel "
+                    f"takes {longq['sub_kernel_ms']:.3f} ms",
+        "bound_ms": longq["bound_ms"],
+        "bound_by": longq["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "ragged_dp_grouped", "route": "cuda",
+        "source": "opal_tpu_torch/engine/csrc/ragged_dp.cu",
+        "replaces": "opal_tpu/engine/pallas_kernels.py:732:"
+                    "build_pallas_score_fn_raw",
+        "launches": grouped["launches"],
+        "checked_cases": grouped["cases"],
+        "mismatches": grouped["mismatches"],
+        "max_abs_err": grouped["max_abs_err"],
+        "ms": grouped["ms"],
+        "ms_at": f"SW x0, O74807 x {grouped['G']} dense blocks of "
+                 f"[{grouped['T']}, {grouped['B']}] from the database",
+        "plain_ms": grouped["plain_ms"],
+        "plain_at": "the same inputs",
+        "bound_ms": grouped["bound_ms"],
+        "bound_by": grouped["bound_by"],
         "library_ms": None,
     }]})
     # count is what torch sees: 1 on the one-card machine this runs on

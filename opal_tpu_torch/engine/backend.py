@@ -1,14 +1,17 @@
 """Backend: queries against a resident database through the DP kernels.
 
 It takes the places of opal_tpu's PallasBackend (on the card: the ragged_dp
-kernel for one query, the multi_dp kernel for a stacked group, one launch
-per wave of blocks) and XlaBackend (on the CPU: the plain versions) with
-one protocol: prepare_query -> dispatch_many -> collect_many for one
-query, supports_multi -> dispatch_multi -> collect_multi for a group.
-Which one runs follows from the device the database lives on; nothing
-falls back from one to the other.
+kernel for one query, in query panels when it is taller than
+kernels.PANEL_ROWS, the multi_dp kernel for a stacked group, one launch
+per wave of blocks and panel) and XlaBackend (on the CPU: the plain
+versions) with one protocol: prepare_query -> dispatch_many ->
+collect_many for one query, supports_multi -> dispatch_multi ->
+collect_multi for a group. Which one runs follows from the device the
+database lives on; nothing falls back from one to the other.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -18,6 +21,24 @@ from . import kernels
 
 # |DP values| must stay clear of the int32 -inf sentinel (NEG = -2^30)
 VALUE_BOUND = 2**29
+
+
+@dataclasses.dataclass
+class PanelRows:
+    """A long query's live result: one tracker-row tensor per panel."""
+    rows: list
+    panels: tuple    # ((row0, rows), ...), kernels.plan_panels
+
+
+def finalize_handle(handle, ddb, mode, search_type, Q, with_flags=False):
+    """dispatch_many's handle -> {column: [NB, B] int32} on the device
+    (kernels.finalize_device, or the panel merge for a PanelRows)."""
+    if isinstance(handle, PanelRows):
+        return kernels.finalize_panels_device(
+            handle.rows, handle.panels, ddb.stream.lengths, mode,
+            search_type, with_flags)
+    return kernels.finalize_device(handle, ddb.stream.lengths, mode,
+                                   search_type, Q, with_flags)
 
 
 class RaggedBackend:
@@ -41,10 +62,13 @@ class RaggedBackend:
                        max_len=0) -> bool:
         """Can these queries run as one stacked multi_dp launch? At most
         MULTI_MAX_SEGS of them, each within `supports` (the tallest decides
-        the value bound). Any gap pair: the kernel's F chain is exact for
-        all of them. The grouping decides launches only, never results."""
+        the value bound) and none taller than kernels.PANEL_ROWS: a long
+        query runs alone, in panels, as in opal_tpu. Any gap pair: the
+        kernel's F chain is exact for all of them. The grouping decides
+        launches only, never results."""
         return (0 < len(queries) <= kernels.MULTI_MAX_SEGS
                 and min(len(q) for q in queries) >= 1
+                and max(len(q) for q in queries) <= kernels.PANEL_ROWS
                 and self.supports(max(len(q) for q in queries), gap_open,
                                   gap_ext, A, int(np.abs(matrix).max()),
                                   max_len))
@@ -56,21 +80,29 @@ class RaggedBackend:
 
     def dispatch_many(self, profile, ddb, gap_open, gap_ext, mode,
                       search_type, with_flags=False):
-        """Enqueue the whole database; returns the device tracker rows
-        (with the overflow-flag rows when with_flags)."""
+        """Enqueue the whole database; returns the handle: the device
+        tracker rows (with the overflow-flag rows when with_flags), or a
+        PanelRows for a query taller than kernels.PANEL_ROWS (the row
+        count alone decides: the card has no VMEM gate)."""
         if not ddb.blocks:
             return None
-        return kernels.ragged_score(profile, ddb.stream, mode, search_type,
-                                    int(gap_open), int(gap_ext), with_flags)
+        args = (profile, ddb.stream, mode, search_type, int(gap_open),
+                int(gap_ext), with_flags)
+        if profile.shape[0] > kernels.PANEL_ROWS:
+            panels = kernels.plan_panels(profile.shape[0])
+            return PanelRows(kernels.ragged_panel_score(*args,
+                                                        panels=panels),
+                             panels)
+        return kernels.ragged_score(*args)
 
-    def collect_many(self, tr, ddb, mode, search_type, Q, with_flags=False):
-        """Finalize the tracker rows on the device, then one device->host
+    def collect_many(self, handle, ddb, mode, search_type, Q,
+                     with_flags=False):
+        """Finalize the handle's rows on the device, then one device->host
         copy; returns [(Block, {col: [n] array}), ...] over all DB
         blocks (the flag columns too when with_flags)."""
-        if tr is None:
+        if handle is None:
             return []
-        cols = kernels.finalize_device(tr, ddb.stream.lengths, mode,
-                                       search_type, Q, with_flags)
+        cols = finalize_handle(handle, ddb, mode, search_type, Q, with_flags)
         host = torch.stack(list(cols.values()), dim=1).cpu().numpy()
         return [(blk, {k: host[bi, j, :blk.n] for j, k in enumerate(cols)})
                 for bi, blk in enumerate(ddb.blocks)]

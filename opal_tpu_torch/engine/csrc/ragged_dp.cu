@@ -49,6 +49,20 @@
 // min F, max H, two cells per 3-input instruction); with FLAGS false the
 // kernel is the code it was without them.
 //
+// Query panels (PANEL, K6). Also replaces opal_tpu's query-panel kernel
+// build_pallas_panel_fn_raw (pallas_kernels.py:959-1082, boundary rows
+// :412-458, emits :674-694): a launch covers the query rows [row0, row0 +
+// rows) of a query of Q rows. The panel that starts at row 0 takes the
+// mode's row -1 wall; a later panel's first strip reads its top boundary
+// from the scratch the previous panel's last strip left there, which is
+// what the TPU kernel's bh/bx rows carry (bh[t] = H[t-1], bx[t] = max(H[t] -
+// go, F[t] - ge) of the row above). The panel that holds row Q-1 (final)
+// alone keeps the last-row trackers. Each panel emits its own rows, as
+// kernels.panel_tracker_rows lists them, with end rows local to the panel;
+// kernels.finalize_panels_device merges them on the card. Panels of one
+// wave run in order on one stream and share the wave's scratch. With PANEL
+// false the kernel is the code it was without it (row0 = 0, one panel).
+//
 // Left for later: DPX instructions (__viaddmax_s32, __vimax3_s32) to fuse
 // add+max and max3; the profile held in registers instead of shared memory;
 // query tiling across the warps of a block (inter-thread wavefront) instead
@@ -76,9 +90,10 @@ struct Args {
   int2* scratch;              // (H, F) of a strip's last row, per cell
   int* out;                   // [NB, rows, B]
   int first_block, B, Q, W, go, ge;
+  int row0, rows;             // PANEL: the query rows of this launch
 };
 
-template <int MODE, bool END, bool FLAGS>
+template <int MODE, bool END, bool FLAGS, bool PANEL>
 __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
   __shared__ int sprof[MAX_W * RS];
   constexpr bool WALL = MODE == MODE_NW || MODE == MODE_HW;
@@ -92,19 +107,22 @@ __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
   int2* scr = a.scratch == nullptr
                   ? nullptr
                   : a.scratch + (boff - a.offsets[a.first_block]) + lane;
-  const int ns = (Q + R - 1) / R;
+  // without PANEL one launch covers every row: row0 = 0, final
+  const int row0 = PANEL ? a.row0 : 0;
+  const bool is_final = PANEL ? row0 + a.rows == Q : true;
+  const int ns = ((PANEL ? a.rows : Q) + R - 1) / R;
 
-  // lane trackers
-  int best = 0, best_r = 0, best_c = 0;  // SW
-  int lr = NEG, lr_c = 0, plrm = NEG;    // HW / OV last row
-  int ocm = NEG, orow = 0;               // OV last column
+  // lane trackers (rows are global; a panel emits them local)
+  int best = 0, best_r = row0, best_c = 0;  // SW
+  int lr = NEG, lr_c = 0, plrm = NEG;       // HW / OV last row
+  int ocm = NEG, orow = row0;               // OV last column
   int nw = NEG;                          // NW
   // overflow flags: SW max ulH+P | min E, min F, max H
   int fl_ulhp = NEG, fl_mine = 0, fl_minf = 0, fl_maxh = NEG;
 
   for (int s = 0; s < ns; ++s) {
-    const int r0 = s * R;
-    const bool last = s == ns - 1;
+    const int r0 = row0 + s * R;  // global row of the strip's row 0
+    const bool last = is_final && s == ns - 1;  // the strip holding row Q-1
     const int jl = Q - 1 - r0;  // row Q-1 within the last strip
     const int jv = last ? jl : R - 1;  // last real row of this strip
     __syncthreads();
@@ -124,7 +142,7 @@ __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
       E[j] = MODE == MODE_SW ? 0 : NEG;       // E[r][-1]
     }
     // diagonal input of row r0 at column 0: H[r0-1][-1]
-    int ul = (s > 0 && WALL) ? -go - (r0 - 1) * ge : 0;
+    int ul = ((PANEL ? r0 > 0 : s > 0) && WALL) ? -go - (r0 - 1) * ge : 0;
     int sb = 0, st = 0, sr = 0;  // SW end tracker of this strip
 
     for (int t4 = 0; t4 < len; t4 += 4) {
@@ -135,10 +153,10 @@ __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
         if (t >= len) break;
         const int* pr = sprof + ((w >> (8 * k)) & 0x7f) * RS;
         int hu, fu;  // H[r0-1][t], F[r0-1][t]
-        if (s == 0) {
+        if (PANEL ? r0 == 0 : s == 0) {  // row -1: the mode's wall
           hu = MODE == MODE_NW ? -go - t * ge : 0;
           fu = MODE == MODE_SW ? 0 : NEG;
-        } else {
+        } else {  // the last row of the strip (or panel) above
           const int2 b = scr[(size_t)t * B];
           hu = b.x;
           fu = b.y;
@@ -229,6 +247,54 @@ __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
   }
 
   if (lane >= B) return;
+  if (PANEL) {  // rows as kernels.panel_tracker_rows lists them
+    const int nrows =
+        (MODE == MODE_SW   ? 1 + 2 * END
+         : MODE == MODE_NW ? (is_final ? 1 : 0)
+         : MODE == MODE_HW ? (is_final ? 1 + END : 0)
+                           : (is_final ? 1 + 2 * END : 0) + 1 + END) +
+        (FLAGS ? (MODE == MODE_SW ? 1 : 3) : 0);
+    int* o = a.out + (size_t)blk * max(nrows, 1) * B + lane;
+    auto put = [&](int v) {
+      *o = v;
+      o += B;
+    };
+    if (nrows == 0) put(NEG);  // a filler row: the merge reads nothing here
+    if (MODE == MODE_SW) {
+      put(best);
+      if (END) {
+        put(best_r - row0);
+        put(best_c);
+      }
+    } else if (MODE == MODE_NW) {
+      if (is_final) put(nw);
+    } else if (MODE == MODE_HW) {
+      if (is_final) {
+        put(lr);
+        if (END) put(lr_c);
+      }
+    } else {  // OV: the last-row rows, then this panel's last column
+      if (is_final) {
+        put(lr);
+        if (END) {
+          put(lr_c);
+          put(plrm);
+        }
+      }
+      put(ocm);
+      if (END) put(orow - row0);
+    }
+    if (FLAGS) {
+      if (MODE == MODE_SW) {
+        put(fl_ulhp);
+      } else {
+        put(fl_mine);
+        put(fl_minf);
+        put(fl_maxh);
+      }
+    }
+    return;
+  }
   // tracker rows, as kernels.tracker_rows lists them
   constexpr int SROWS = (MODE == MODE_NW || !END) ? 1 : MODE == MODE_HW ? 2 : 3;
   constexpr int ROWS = SROWS + (FLAGS ? (MODE == MODE_SW ? 1 : 3) : 0);
@@ -264,23 +330,43 @@ __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
   }
 }
 
-template <int MODE, bool END, bool FLAGS>
+template <int MODE, bool END, bool FLAGS, bool PANEL>
 void launch(const Args& a, int n_blocks, cudaStream_t stream) {
   const dim3 grid((a.B + THREADS - 1) / THREADS, n_blocks);
-  ragged_dp_kernel<MODE, END, FLAGS><<<grid, THREADS, 0, stream>>>(a);
+  ragged_dp_kernel<MODE, END, FLAGS, PANEL><<<grid, THREADS, 0, stream>>>(a);
 }
 
 // the four (END, FLAGS) instantiations of one mode
-template <int MODE>
+template <int MODE, bool PANEL>
 void launch_mode(const Args& a, int n_blocks, cudaStream_t st, bool e,
                  bool f) {
   if (f) {
-    e ? launch<MODE, true, true>(a, n_blocks, st)
-      : launch<MODE, false, true>(a, n_blocks, st);
+    e ? launch<MODE, true, true, PANEL>(a, n_blocks, st)
+      : launch<MODE, false, true, PANEL>(a, n_blocks, st);
   } else {
-    e ? launch<MODE, true, false>(a, n_blocks, st)
-      : launch<MODE, false, false>(a, n_blocks, st);
+    e ? launch<MODE, true, false, PANEL>(a, n_blocks, st)
+      : launch<MODE, false, false, PANEL>(a, n_blocks, st);
   }
+}
+
+template <bool PANEL>
+int launch_any(const Args& a, int n_blocks, void* stream, int mode,
+               int track_end, int with_flags) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool e = track_end != 0, f = with_flags != 0;
+  switch (mode) {
+    case MODE_NW: launch_mode<MODE_NW, PANEL>(a, n_blocks, st, e, f); break;
+    case MODE_HW: launch_mode<MODE_HW, PANEL>(a, n_blocks, st, e, f); break;
+    case MODE_OV: launch_mode<MODE_OV, PANEL>(a, n_blocks, st, e, f); break;
+    case MODE_SW: launch_mode<MODE_SW, PANEL>(a, n_blocks, st, e, f); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int B, int Q, int W, int n_blocks, const void* scratch) {
+  return W > MAX_W || W < 1 || Q < 1 || B < 1 || n_blocks < 1 ||
+         n_blocks > 65535 || (Q > R && scratch == nullptr);
 }
 
 }  // namespace
@@ -295,8 +381,7 @@ extern "C" int ragged_dp_launch(const void* profile, const void* letters,
                                 int n_blocks, int B, int Q, int W, int mode,
                                 int track_end, int with_flags, int go, int ge,
                                 void* stream) {
-  if (W > MAX_W || W < 1 || Q < 1 || B < 1 || n_blocks < 1 ||
-      n_blocks > 65535 || (Q > R && scratch == nullptr))
+  if (bad_shape(B, Q, W, n_blocks, scratch))
     return (int)cudaErrorInvalidValue;
   Args a{static_cast<const int*>(profile),
          static_cast<const int8_t*>(letters),
@@ -304,15 +389,29 @@ extern "C" int ragged_dp_launch(const void* profile, const void* letters,
          static_cast<const int*>(lengths),
          static_cast<int2*>(scratch),
          static_cast<int*>(out),
-         first_block, B, Q, W, go, ge};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool e = track_end != 0, f = with_flags != 0;
-  switch (mode) {
-    case MODE_NW: launch_mode<MODE_NW>(a, n_blocks, st, e, f); break;
-    case MODE_HW: launch_mode<MODE_HW>(a, n_blocks, st, e, f); break;
-    case MODE_OV: launch_mode<MODE_OV>(a, n_blocks, st, e, f); break;
-    case MODE_SW: launch_mode<MODE_SW>(a, n_blocks, st, e, f); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+         first_block, B, Q, W, go, ge, 0, Q};
+  return launch_any<false>(a, n_blocks, stream, mode, track_end, with_flags);
+}
+
+// The panel role: the same launch over the query rows [row0, row0 + rows)
+// of the Q-row profile. row0 is a multiple of R; a panel that does not end
+// at row Q-1 has a multiple of R rows and leaves its last row in scratch
+// for the next panel, which must run next on the same stream over the same
+// blocks. out holds the panel's rows (kernels.panel_tracker_rows).
+extern "C" int ragged_dp_panel_launch(
+    const void* profile, const void* letters, const void* offsets,
+    const void* lengths, void* scratch, void* out, int first_block,
+    int n_blocks, int B, int Q, int row0, int rows, int W, int mode,
+    int track_end, int with_flags, int go, int ge, void* stream) {
+  if (bad_shape(B, Q, W, n_blocks, scratch) || row0 < 0 || rows < 1 ||
+      row0 % R != 0 || row0 + rows > Q || (row0 + rows < Q && rows % R != 0))
+    return (int)cudaErrorInvalidValue;
+  Args a{static_cast<const int*>(profile),
+         static_cast<const int8_t*>(letters),
+         static_cast<const long long*>(offsets),
+         static_cast<const int*>(lengths),
+         static_cast<int2*>(scratch),
+         static_cast<int*>(out),
+         first_block, B, Q, W, go, ge, row0, rows};
+  return launch_any<true>(a, n_blocks, stream, mode, track_end, with_flags);
 }

@@ -13,11 +13,22 @@ that the adaptive cascade reads (with_flags, :525-549). The CUDA kernel csrc/mul
 (:1440-1521, body :1163-1437): up to MULTI_MAX_SEGS queries stacked as
 independent row segments, scored in one pass.
 
-`ragged_score` and `multi_score` are the entry points: each launches its
-kernel for CUDA tensors and runs its plain version (`ragged_score_plain`,
-`multi_score_plain`) for CPU tensors, and raises for anything else. Kernel
-and plain version return the same rows, bit for bit; the semantics are
-those of opal_tpu's int32 twin (opal_tpu/engine/xla.py).
+Long queries run in query panels (`ragged_panel_score`, the panel role of
+ragged_dp): a query taller than PANEL_ROWS is cut into panels of
+PANEL_ROWS rows (`plan_panels`), each launch covers one panel over one
+wave of blocks, and a panel hands its last row to the next through the
+wave's scratch. This replaces opal_tpu's `build_pallas_panel_fn_raw`
+(:959-1082); `finalize_panels_device` is its host merge
+`finalize_trackers_panels` (:1091-1160), here on the card. `grouped_score`
+is the counterpart of `build_pallas_score_fn_raw` (:732-821): one query
+against G dense [T, B] blocks, laid out as a stream and scored by ragged_dp.
+
+`ragged_score`, `ragged_panel_score`, `multi_score` and `grouped_score` are
+the entry points: each launches its kernel for CUDA tensors and runs its
+plain version (`ragged_score_plain`, `ragged_panel_plain`,
+`multi_score_plain`, `grouped_score_plain`) for CPU tensors, and raises for
+anything else. Kernel and plain version return the same rows, bit for bit;
+the semantics are those of opal_tpu's int32 twin (opal_tpu/engine/xla.py).
 
 The kernel's input (`Stream`): block b's letters are the int8 bytes
 letters[offsets[b]:offsets[b+1]], laid out [t4, B, 4] with t4 = ceil(t_pad/4):
@@ -46,17 +57,28 @@ MULTI_MAX_SEGS = 8   # queries per multi_dp launch (== MAX_SEGS in multi_dp.cu)
 # larger databases launch in waves of consecutive blocks.
 WAVE_CELLS = 32 * 1024 * 1024
 MAX_WAVE_BLOCKS = 65535  # CUDA grid.y limit
+# Query rows per panel (a multiple of STRIP_ROWS): a query taller than this
+# runs in panels (engine/backend.py), each launch covering PANEL_ROWS rows
+# of one wave. 1,024, 4,096, 16,384 rows and one sweep ran a
+# 100,000-residue search within 0.6 % of each other on an H100 (PERF.md);
+# this is the smallest of them.
+PANEL_ROWS = 1024
 
 # Launches of each kernel and calls of each plain version; the counts
 # let a run show which path it took.
-LAUNCHES = {"ragged_dp": 0, "ragged_dp_flags": 0, "multi_dp": 0}
-PLAIN_CALLS = {"ragged_score_plain": 0, "multi_score_plain": 0}
+LAUNCHES = {"ragged_dp": 0, "ragged_dp_flags": 0, "multi_dp": 0,
+            "ragged_dp_panel": 0, "ragged_dp_grouped": 0}
+PLAIN_CALLS = {"ragged_score_plain": 0, "multi_score_plain": 0,
+               "ragged_panel_plain": 0}
 
 # tracker row ids (opal_tpu's TR_* numbering, kept for reading across)
 TR_BEST = 0      # SW best score / HW-OV last-row running max / OV score
 TR_BEST_R = 1    # SW / OV end_q
 TR_BEST_C = 2    # SW end_t / HW-OV first-improvement column / OV end_t
 TR_NW = 3        # NW score, H[Q-1][len-1]
+TR_OV_PLRM = 4   # OV last-row max before the last column (panels)
+TR_OV_CMAX = 5   # OV last-column max (panels)
+TR_OV_ROW = 6    # OV first row of the last-column max (panels)
 TR_ULHP = 7      # SW overflow flag: running max of ulH + P
 TR_MIN_E = 8     # NW/HW/OV overflow flags: running min of E,
 TR_MIN_F = 9     # running min of F
@@ -107,6 +129,117 @@ def finalize_device(tr: torch.Tensor, lengths: torch.Tensor, mode,
     for r, name in FLAG_COLUMNS.items():
         if r in row:
             cols[name] = row[r]
+    return cols
+
+
+def panel_tracker_rows(mode, search_type, with_flags, final):
+    """Tracker rows one query panel emits, in output order (a copy of
+    opal_tpu's panel_tracker_rows, pallas_kernels.py:933-955). Interior
+    panels emit only what the merge needs (SW records, OV last-column
+    stats, flags); the final panel adds the last-row trackers. End rows
+    (TR_BEST_R, TR_OV_ROW) are local to the panel. A panel with nothing to
+    emit gets one filler row (NEG), which the merge never reads."""
+    track_end = search_type != SEARCH_SCORE
+    if mode == MODE_SW:
+        rows = [TR_BEST] + ([TR_BEST_R, TR_BEST_C] if track_end else [])
+    elif mode == MODE_NW:
+        rows = [TR_NW] if final else []
+    elif mode == MODE_HW:
+        rows = ([TR_BEST] + ([TR_BEST_C] if track_end else [])
+                if final else [])
+    else:  # OV: per-panel last-column stats + final-panel last-row rows
+        if track_end:
+            rows = ([TR_BEST, TR_BEST_C, TR_OV_PLRM] if final else [])
+            rows += [TR_OV_CMAX, TR_OV_ROW]
+        else:
+            rows = ([TR_BEST] if final else []) + [TR_OV_CMAX]
+    if with_flags:
+        rows += [TR_ULHP] if mode == MODE_SW else [
+            TR_MIN_E, TR_MIN_F, TR_MAX_H]
+    return tuple(rows) if rows else (TR_BEST,)
+
+
+def plan_panels(Q: int):
+    """((row0, rows), ...) of a Q-row query cut into PANEL_ROWS-row panels,
+    the last one shorter (opal_tpu's split, pallas_backend.py:286-300)."""
+    P = PANEL_ROWS
+    if P < STRIP_ROWS or P % STRIP_ROWS:
+        raise ValueError(f"PANEL_ROWS={P}: panels are whole strips of "
+                         f"{STRIP_ROWS} rows")
+    if Q < 1:
+        raise ValueError("empty query")
+    return tuple((r0, min(P, Q - r0)) for r0 in range(0, Q, P))
+
+
+def _check_panels(panels, Q):
+    """panels as ints, if they cut Q rows into consecutive panels of whole
+    strips (the last one excepted); else ValueError."""
+    panels = tuple((int(r0), int(n)) for r0, n in panels)
+    ends = [r0 + n for r0, n in panels]
+    if not (panels and [r0 for r0, _ in panels] == [0] + ends[:-1]
+            and ends[-1] == Q and min(n for _, n in panels) >= 1
+            and all(n % STRIP_ROWS == 0 for _, n in panels[:-1])):
+        raise ValueError(f"panels {panels} do not cut {Q} rows into whole "
+                         f"strips of {STRIP_ROWS} rows")
+    return panels
+
+
+def finalize_panels_device(trs, panels, lengths: torch.Tensor, mode,
+                           search_type, with_flags=False):
+    """Merge per-panel tracker rows ([NB, n_rows_p, B] each, rows per
+    panel_tracker_rows) on their device into finalize_device's columns
+    (opal_tpu's finalize_trackers_panels, pallas_kernels.py:1091-1160, in
+    torch ops): SW best over the panels, its end at the smallest end_t,
+    then the smallest global end_q; OV score and end from the merged
+    last-column max and the final panel's last-row rows; flags by min/max."""
+    n_p = len(trs)
+    Q = panels[-1][0] + panels[-1][1]
+    track_end = search_type != SEARCH_SCORE
+    big = torch.iinfo(torch.int32).max
+    maps = [{r: trs[p][:, j] for j, r in enumerate(panel_tracker_rows(
+        mode, search_type, with_flags, p == n_p - 1))} for p in range(n_p)]
+    last = maps[-1]
+
+    def stack(r, add_offset=False):
+        return torch.stack([m[r] + (panels[p][0] if add_offset else 0)
+                            for p, m in enumerate(maps)])
+
+    cols = {}
+    if mode == MODE_SW:
+        bests = stack(TR_BEST)
+        cols["score"] = bests.amax(dim=0)
+        if track_end:
+            end_ts = stack(TR_BEST_C)
+            att = bests == cols["score"]
+            end_t = torch.where(att, end_ts, big).amin(dim=0)
+            cols["end_q"] = torch.where(att & (end_ts == end_t),
+                                        stack(TR_BEST_R, True),
+                                        big).amin(dim=0)
+            cols["end_t"] = end_t
+    elif mode in (MODE_NW, MODE_HW):
+        cols["score"] = last[TR_NW if mode == MODE_NW else TR_BEST]
+        if track_end:
+            cols["end_q"] = torch.full_like(cols["score"], Q - 1)
+            cols["end_t"] = (lengths - 1 if mode == MODE_NW
+                             else last[TR_BEST_C])
+    else:  # OV
+        cmaxs = stack(TR_OV_CMAX)
+        colmax = cmaxs.amax(dim=0)
+        cols["score"] = torch.maximum(colmax, last[TR_BEST])
+        if track_end:
+            ovrow = torch.where(cmaxs == colmax, stack(TR_OV_ROW, True),
+                                big).amin(dim=0)
+            in_last = colmax > last[TR_OV_PLRM]
+            cols["end_q"] = torch.where(in_last, ovrow, Q - 1)
+            cols["end_t"] = torch.where(in_last, lengths - 1,
+                                        last[TR_BEST_C])
+    if with_flags:
+        if mode == MODE_SW:
+            cols["max_ulhp"] = stack(TR_ULHP).amax(dim=0)
+        else:
+            cols["min_e"] = stack(TR_MIN_E).amin(dim=0)
+            cols["min_f"] = stack(TR_MIN_F).amin(dim=0)
+            cols["max_h"] = stack(TR_MAX_H).amax(dim=0)
     return cols
 
 
@@ -216,11 +349,13 @@ def _check_inputs(profile: torch.Tensor, stream: Stream):
 
 def ragged_score(profile: torch.Tensor, stream: Stream, mode: int,
                  search_type: int, go: int, ge: int,
-                 with_flags: bool = False) -> torch.Tensor:
+                 with_flags: bool = False, events=None) -> torch.Tensor:
     """Score one query (profile [Q, W] int32) against every lane of the
     stream. Returns the tracker rows [NB, len(tracker_rows), B] int32 on
     the stream's device (see finalize_device); with_flags adds the
-    overflow-flag rows (counted in LAUNCHES["ragged_dp_flags"])."""
+    overflow-flag rows (counted in LAUNCHES["ragged_dp_flags"]). `events`,
+    a list, receives (wave, 0, start, end) CUDA events around each
+    launch."""
     _check_inputs(profile, stream)
     dev = stream.letters.device
     if dev.type == "cpu":
@@ -228,6 +363,17 @@ def ragged_score(profile: torch.Tensor, stream: Stream, mode: int,
                                   with_flags)
     if dev.type != "cuda":
         raise ValueError(f"no ragged_dp kernel for device {dev}")
+    return _ragged_launch(profile, stream, mode, search_type, go, ge,
+                          with_flags,
+                          "ragged_dp_flags" if with_flags else "ragged_dp",
+                          events)
+
+
+def _ragged_launch(profile, stream, mode, search_type, go, ge, with_flags,
+                   name, events=None):
+    """ragged_dp over the whole stream, one launch per wave, counted in
+    LAUNCHES[name]."""
+    dev = stream.letters.device
     profile = profile.contiguous()
     NB, B = stream.lengths.shape
     Q, W = profile.shape
@@ -237,7 +383,7 @@ def ragged_score(profile: torch.Tensor, stream: Stream, mode: int,
         return out
     lib = _lib("ragged_dp")
 
-    def launch(scratch, first, n, cu_stream):
+    def launch(scratch, first, n, cu_stream, _step):
         return lib.ragged_dp_launch(
             profile.data_ptr(), stream.letters.data_ptr(),
             stream.offsets.data_ptr(), stream.lengths.data_ptr(),
@@ -245,9 +391,114 @@ def ragged_score(profile: torch.Tensor, stream: Stream, mode: int,
             int(search_type != SEARCH_SCORE), int(bool(with_flags)),
             int(go), int(ge), cu_stream)
 
-    _launch_waves("ragged_dp_flags" if with_flags else "ragged_dp", launch,
-                  stream, Q > STRIP_ROWS)
+    _launch_waves(name, launch, stream, Q > STRIP_ROWS, events=events)
     return out
+
+
+def ragged_panel_score(profile: torch.Tensor, stream: Stream, mode: int,
+                       search_type: int, go: int, ge: int,
+                       with_flags: bool = False, panels=None,
+                       events=None) -> list:
+    """Score one query (profile [Q, W] int32) in query panels: panels
+    ((row0, rows), ...), plan_panels(Q) by default. Returns one tracker-row
+    tensor [NB, len(panel_tracker_rows(.., final)), B] int32 per panel, on
+    the stream's device (merge them with finalize_panels_device). On the
+    card, every wave of blocks runs the panels in order, one launch each
+    (counted in LAUNCHES["ragged_dp_panel"]), and they hand rows to each
+    other through the wave's scratch. `events`, a list, receives (wave,
+    panel, start, end) CUDA events around each launch."""
+    _check_inputs(profile, stream)
+    Q = profile.shape[0]
+    panels = plan_panels(Q) if panels is None else _check_panels(panels, Q)
+    dev = stream.letters.device
+    if dev.type == "cpu":
+        outs, top = [], None
+        for row0, rows in panels:
+            tr, top = ragged_panel_plain(profile, stream, mode, search_type,
+                                         go, ge, with_flags, row0, rows, top)
+            outs.append(tr)
+        return outs
+    if dev.type != "cuda":
+        raise ValueError(f"no ragged_dp kernel for device {dev}")
+    profile = profile.contiguous()
+    NB, B = stream.lengths.shape
+    W = profile.shape[1]
+    outs = [torch.empty((NB, len(panel_tracker_rows(
+        mode, search_type, with_flags, r0 + n == Q)), B), dtype=torch.int32,
+        device=dev) for r0, n in panels]
+    if NB == 0:
+        return outs
+    lib = _lib("ragged_dp")
+
+    def launch(scratch, first, n, cu_stream, p):
+        row0, rows = panels[p]
+        return lib.ragged_dp_panel_launch(
+            profile.data_ptr(), stream.letters.data_ptr(),
+            stream.offsets.data_ptr(), stream.lengths.data_ptr(),
+            scratch, outs[p].data_ptr(), first, n, B, Q, row0, rows, W,
+            int(mode), int(search_type != SEARCH_SCORE),
+            int(bool(with_flags)), int(go), int(ge), cu_stream)
+
+    _launch_waves("ragged_dp_panel", launch, stream, Q > STRIP_ROWS,
+                  len(panels), events)
+    return outs
+
+
+def grouped_stream(letters: torch.Tensor, lengths: torch.Tensor) -> Stream:
+    """Dense blocks (letters [G, T, B] int8, lengths [G, B] int32, on one
+    device) laid out on that device as the kernel's Stream: T padded to
+    T_pad = 4 * ceil(T / 4) with PAD_LETTER, each block [t4, B, 4] at byte
+    offset g * T_pad * B."""
+    if letters.dtype != torch.int8 or letters.dim() != 3:
+        raise ValueError("letters must be a [G, T, B] int8 tensor")
+    G, T, B = letters.shape
+    if (lengths.dtype != torch.int32 or tuple(lengths.shape) != (G, B)
+            or lengths.device != letters.device):
+        raise ValueError(f"lengths must be a [{G}, {B}] int32 tensor on "
+                         f"{letters.device}")
+    if lengths.numel() and not 0 <= int(lengths.min()) <= int(
+            lengths.max()) <= T:
+        raise ValueError(f"lengths outside [0, {T}]")
+    t4 = -(-T // 4)
+    if t4 * 4 != T:
+        letters = torch.cat([letters, torch.full(
+            (G, t4 * 4 - T, B), PAD_LETTER, dtype=torch.int8,
+            device=letters.device)], dim=1)
+    flat = letters.reshape(G, t4, 4, B).permute(0, 1, 3, 2).reshape(-1)
+    host_offsets = np.arange(G + 1, dtype=np.int64) * (t4 * 4 * B)
+    return Stream(letters=flat.contiguous(),
+                  offsets=torch.from_numpy(host_offsets).to(letters.device),
+                  lengths=lengths.contiguous(), host_offsets=host_offsets)
+
+
+def grouped_score(profile: torch.Tensor, letters: torch.Tensor,
+                  lengths: torch.Tensor, mode: int, search_type: int,
+                  go: int, ge: int, with_flags: bool = False) -> torch.Tensor:
+    """Score one query against G dense blocks (letters [G, T, B] int8,
+    lengths [G, B] int32; opal_tpu's build_pallas_score_fn_raw). Returns
+    the tracker rows [G, len(tracker_rows), B] int32, as ragged_score
+    does; on the card ragged_dp runs over grouped_stream's layout (counted
+    in LAUNCHES["ragged_dp_grouped"])."""
+    stream = grouped_stream(letters, lengths)
+    _check_inputs(profile, stream)
+    dev = stream.letters.device
+    if dev.type == "cpu":
+        return ragged_score_plain(profile, stream, mode, search_type, go, ge,
+                                  with_flags)
+    if dev.type != "cuda":
+        raise ValueError(f"no ragged_dp kernel for device {dev}")
+    return _ragged_launch(profile, stream, mode, search_type, go, ge,
+                          with_flags, "ragged_dp_grouped")
+
+
+def grouped_score_plain(profile: torch.Tensor, letters: torch.Tensor,
+                        lengths: torch.Tensor, mode: int, search_type: int,
+                        go: int, ge: int,
+                        with_flags: bool = False) -> torch.Tensor:
+    """The function `grouped_score` computes: ragged_score_plain on the
+    same stream."""
+    return ragged_score_plain(profile, grouped_stream(letters, lengths),
+                              mode, search_type, go, ge, with_flags)
 
 
 def multi_score(profile: torch.Tensor, seg_qs, stream: Stream, mode: int,
@@ -275,7 +526,7 @@ def multi_score(profile: torch.Tensor, seg_qs, stream: Stream, mode: int,
     lib = _lib("multi_dp")
     c_qs = (ctypes.c_int * n_seg)(*seg_qs)
 
-    def launch(scratch, first, n, cu_stream):
+    def launch(scratch, first, n, cu_stream, _step):
         return lib.multi_dp_launch(
             profile.data_ptr(), stream.letters.data_ptr(),
             stream.offsets.data_ptr(), stream.lengths.data_ptr(),
@@ -298,10 +549,14 @@ def _check_segments(profile: torch.Tensor, seg_qs, stream: Stream):
     return seg_qs
 
 
-def _launch_waves(name, launch, stream: Stream, tall: bool):
-    """Run launch(scratch_ptr, first_block, n_blocks, cu_stream) once per
-    wave of blocks, with one boundary scratch sized for the largest wave
-    (None when no strip hands rows to another, i.e. `tall` is false)."""
+def _launch_waves(name, launch, stream: Stream, tall: bool, n_steps=1,
+                  events=None):
+    """Run launch(scratch_ptr, first_block, n_blocks, cu_stream, step) once
+    per wave of blocks and, inside each wave, for step 0 .. n_steps-1 in
+    order (the panels of a query), with one boundary scratch sized for the
+    largest wave (None when no strip hands rows to another, i.e. `tall` is
+    false). `events`, a list, receives (wave, step, start, end) CUDA
+    events around each launch."""
     dev = stream.letters.device
     waves = plan_waves(stream.host_offsets)
     scratch = None
@@ -311,12 +566,21 @@ def _launch_waves(name, launch, stream: Stream, tall: bool):
         scratch = torch.empty(2 * cells, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         cu_stream = torch.cuda.current_stream(dev).cuda_stream
-        for first, n in waves:
-            err = launch(None if scratch is None else scratch.data_ptr(),
-                         first, n, cu_stream)
-            if err:
-                raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-            LAUNCHES[name] += 1
+        for w, (first, n) in enumerate(waves):
+            for step in range(n_steps):
+                if events is not None:
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                err = launch(None if scratch is None else scratch.data_ptr(),
+                             first, n, cu_stream, step)
+                if err:
+                    raise RuntimeError(
+                        f"{name} launch failed: CUDA error {err}")
+                LAUNCHES[name] += 1
+                if events is not None:
+                    ev[1].record()
+                    events.append((w, step) + ev)
 
 
 def plan_waves(host_offsets: np.ndarray):
@@ -342,12 +606,16 @@ def _lib(name):
     lib = _build.load(name)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "ragged_dp":  # ..., mode, track_end, with_flags, go, ge, stream
-        args = [vp] * 6 + [ci] * 10 + [vp]
+        sigs = {"ragged_dp_launch": [vp] * 6 + [ci] * 10 + [vp],
+                # ..., B, Q, row0, rows, W, mode, ..., stream
+                "ragged_dp_panel_launch": [vp] * 6 + [ci] * 12 + [vp]}
     else:  # multi_dp: ..., n_seg, seg_q, mode, track_end, go, ge, stream
-        args = [vp] * 6 + [ci] * 5 + [ctypes.POINTER(ci)] + [ci] * 4 + [vp]
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = args
-    fn.restype = ci
+        sigs = {"multi_dp_launch": [vp] * 6 + [ci] * 5
+                + [ctypes.POINTER(ci)] + [ci] * 4 + [vp]}
+    for fname, args in sigs.items():
+        fn = getattr(lib, fname)
+        fn.argtypes = args
+        fn.restype = ci
     return lib
 
 
@@ -370,31 +638,38 @@ def _decode_letters(stream: Stream, T: int) -> torch.Tensor:
     return out.reshape(T, NB * B)
 
 
+def _lanes(v, H):
+    """[L, 1] column of a boundary value: an int for every lane, or an [L]
+    tensor (one per lane)."""
+    if torch.is_tensor(v):
+        return v[:, None]
+    return torch.full_like(H[:, :1], v)
+
+
 def _column_prefix(H, E, P, ul0, uH0, uF0, go, ge, ramp, sw):
     """One column for all lanes, F chain as a max-plus prefix (exact for
-    ge <= go; opal_tpu/engine/xla.py::_column_update). Returns (H, E, F,
-    ulH + P)."""
+    ge <= go; opal_tpu/engine/xla.py::_column_update). The row above the
+    first (ul0 = its H at the previous column, uH0 and uF0 at this one) is
+    an int or a per-lane tensor. Returns (H, E, F, ulH + P)."""
     E = torch.maximum(H - go, E - ge)
-    ulH = torch.cat([torch.full_like(H[:, :1], ul0), H[:, :-1]], dim=1)
+    ulH = torch.cat([_lanes(ul0, H), H[:, :-1]], dim=1)
     ulhp = ulH + P
     Hp = torch.maximum(E, ulhp)
     if sw:
         Hp = Hp.clamp_min(0)
-    c0 = max(uH0 - go, uF0 - ge)
-    C = torch.cat([torch.full_like(Hp[:, :1], c0), Hp[:, :-1] - go], dim=1)
+    c0 = torch.maximum(_lanes(uH0, H) - go, _lanes(uF0, H) - ge)
+    C = torch.cat([c0, Hp[:, :-1] - go], dim=1)
     F = torch.cummax(C + ramp, dim=1).values - ramp
     return torch.maximum(Hp, F), E, F, ulhp
 
 
 def _column_seq(H, E, P, ul0, uH0, uF0, go, ge, sw):
     """One column for all lanes, F chain row by row (exact for any gaps;
-    opal_tpu/engine/xla.py::_column_update_seq). Returns (H, E, F,
-    ulH + P)."""
+    opal_tpu/engine/xla.py::_column_update_seq); the row above as in
+    _column_prefix. Returns (H, E, F, ulH + P)."""
     L, Q = H.shape
     E = torch.maximum(H - go, E - ge)
-    uH = torch.full((L,), uH0, dtype=H.dtype, device=H.device)
-    uF = torch.full_like(uH, uF0)
-    ul = torch.full_like(uH, ul0)
+    uH, uF, ul = (_lanes(v, H)[:, 0] for v in (uH0, uF0, ul0))
     cols, fs, ulhps = [], [], []
     for r in range(Q):
         F = torch.maximum(uH - go, uF - ge)
@@ -410,18 +685,21 @@ def _column_seq(H, E, P, ul0, uH0, uF0, go, ge, sw):
             torch.stack(ulhps, dim=1))
 
 
-def ragged_score_plain(profile: torch.Tensor, stream: Stream, mode: int,
-                       search_type: int, go: int, ge: int,
-                       with_flags: bool = False) -> torch.Tensor:
-    """The function `ragged_dp` computes, in plain PyTorch int32: lanes
-    vectorised, a Python loop over columns (the semantics of
-    opal_tpu/engine/xla.py::build_score_fn). with_flags adds the flag rows
-    over each lane's valid cells (xla.py:201-216): there are no padding
-    rows here, and columns at or past a lane's length are masked."""
-    _check_inputs(profile, stream)
-    PLAIN_CALLS["ragged_score_plain"] += 1
+def _sweep_plain(profile, stream, mode, search_type, go, ge, with_flags,
+                 row0, rows, top):
+    """The DP over the query rows [row0, row0 + rows) of profile [Q, W],
+    lanes vectorised, a Python loop over columns (the semantics of
+    opal_tpu/engine/xla.py::build_score_fn). top is None for the panel
+    that starts at row 0 (the mode's row -1 wall), else (H, F) [T, L] of
+    the row above at every column. Returns ({TR_*: [L] int32} raw
+    trackers, with rows local to the panel, and the last-row ones only
+    when the panel ends at row Q-1; the bottom (H, F) [T, L] of its last
+    row, or None when it ends at row Q-1). with_flags adds the flag
+    trackers over each lane's valid cells (xla.py:201-216): there are no
+    padding rows here, and columns at or past a lane's length are
+    masked."""
     NB, B = stream.lengths.shape
-    Q = profile.shape[0]
+    final = row0 + rows == profile.shape[0]
     dev = profile.device
     i32 = torch.int32
     sw = mode == MODE_SW
@@ -430,15 +708,16 @@ def ragged_score_plain(profile: torch.Tensor, stream: Stream, mode: int,
     L = NB * B
     T = int(lens.max()) if L else 0
     letters = _decode_letters(stream, T)
-    prof_t = profile.t().contiguous()  # [W, Q]
-    rows = torch.arange(Q, dtype=i32, device=dev)
-    ramp = (rows * ge)[None, :]
+    prof_t = profile[row0:row0 + rows].t().contiguous()  # [W, rows]
+    local = torch.arange(rows, dtype=i32, device=dev)
+    ramp = (local * ge)[None, :]
+    wall = mode in (MODE_NW, MODE_HW)
 
-    if sw or mode == MODE_OV:
-        H = torch.zeros((L, Q), dtype=i32, device=dev)
+    if wall:
+        H = (-go - (row0 + local) * ge)[None, :].expand(L, rows).clone()
     else:
-        H = (-go - rows * ge)[None, :].expand(L, Q).clone()
-    E = torch.full((L, Q), 0 if sw else NEG, dtype=i32, device=dev)
+        H = torch.zeros((L, rows), dtype=i32, device=dev)
+    E = torch.full((L, rows), 0 if sw else NEG, dtype=i32, device=dev)
     zeros = torch.zeros(L, dtype=i32, device=dev)
     negs = torch.full((L,), NEG, dtype=i32, device=dev)
     best, best_r, best_c = zeros.clone(), zeros.clone(), zeros.clone()
@@ -446,20 +725,30 @@ def ragged_score_plain(profile: torch.Tensor, stream: Stream, mode: int,
     ocm, orow, nw = negs.clone(), zeros.clone(), negs.clone()
     max_ulhp, max_h = negs.clone(), negs.clone()
     min_e, min_f = zeros.clone(), zeros.clone()
+    bottom = ([], [])
 
     for t in range(T):
-        P = prof_t[letters[t]]  # [L, Q]
-        if mode == MODE_NW:
+        P = prof_t[letters[t]]  # [L, rows]
+        if top is not None:  # the last row of the panel above
+            uH0, uF0 = top[0][t], top[1][t]
+            # H[row0-1][-1]: the mode's first-column wall
+            ul0 = ((-go - (row0 - 1) * ge if wall else 0) if t == 0
+                   else top[0][t - 1])
+        elif mode == MODE_NW:
             uH0 = -go - t * ge
             ul0 = 0 if t == 0 else uH0 + ge
         else:
             uH0 = ul0 = 0
-        uF0 = 0 if sw else NEG
+        if top is None:
+            uF0 = 0 if sw else NEG
         if ge <= go:
             H, E, F, ulhp = _column_prefix(H, E, P, ul0, uH0, uF0, go, ge,
                                            ramp, sw)
         else:
             H, E, F, ulhp = _column_seq(H, E, P, ul0, uH0, uF0, go, ge, sw)
+        if not final:
+            bottom[0].append(H[:, -1])
+            bottom[1].append(F[:, -1])
         valid = t < lens
         if with_flags:
             vm = valid[:, None]
@@ -481,36 +770,93 @@ def ragged_score_plain(profile: torch.Tensor, stream: Stream, mode: int,
                                      best_c)
             continue
         is_end = t == lens - 1
-        lastrow = H[:, Q - 1]
+        if mode == MODE_OV:
+            colmax, argrow = torch.max(H, dim=1)
+            ocm = torch.where(is_end, colmax, ocm)
+            orow = torch.where(is_end, argrow.to(i32), orow)
+        if not final:  # the last-row trackers belong to the final panel
+            continue
+        lastrow = H[:, rows - 1]
         if mode == MODE_NW:
             nw = torch.where(is_end, lastrow, nw)
             continue
         if mode == MODE_OV:
             plrm = torch.where(is_end, lr, plrm)
-            colmax, argrow = torch.max(H, dim=1)
-            ocm = torch.where(is_end, colmax, ocm)
-            orow = torch.where(is_end, argrow.to(i32), orow)
         improved = valid & (lastrow > lr)
         lr = torch.where(improved, lastrow, lr)
         lr_c = torch.where(improved, torch.full_like(lr_c, t), lr_c)
 
-    if sw:
-        outs = [best] + ([best_r, best_c] if track_end else [])
-    elif mode == MODE_NW:
-        outs = [nw]
-    elif mode == MODE_HW:
-        outs = [lr] + ([lr_c] if track_end else [])
-    else:  # OV: the end is in the last column iff its max beats the
-        # last-row max of the earlier columns (opal_tpu/engine/xla.py:238-249)
-        outs = [torch.maximum(ocm, lr)]
-        if track_end:
-            in_last = ocm > plrm
-            outs += [torch.where(in_last, orow, torch.full_like(orow, Q - 1)),
-                     torch.where(in_last, lens - 1, lr_c)]
-    if with_flags:
-        outs += [max_ulhp] if sw else [min_e, min_f, max_h]
-    return torch.stack(outs, dim=0).reshape(len(outs), NB, B).transpose(
-        0, 1).contiguous()
+    raw = {TR_BEST: best if sw else lr, TR_BEST_R: best_r,
+           TR_BEST_C: best_c if sw else lr_c, TR_NW: nw, TR_OV_PLRM: plrm,
+           TR_OV_CMAX: ocm, TR_OV_ROW: orow, TR_ULHP: max_ulhp,
+           TR_MIN_E: min_e, TR_MIN_F: min_f, TR_MAX_H: max_h}
+    if final:
+        return raw, None
+    empty = torch.zeros((0, L), dtype=i32, device=dev)
+    return raw, tuple(torch.stack(b) if b else empty for b in bottom)
+
+
+def _stack_rows(raw, row_ids, NB, B):
+    """[NB, len(row_ids), B] of the raw [L] trackers, in row_ids' order."""
+    return torch.stack([raw[r] for r in row_ids], dim=0).reshape(
+        len(row_ids), NB, B).transpose(0, 1).contiguous()
+
+
+def ragged_score_plain(profile: torch.Tensor, stream: Stream, mode: int,
+                       search_type: int, go: int, ge: int,
+                       with_flags: bool = False) -> torch.Tensor:
+    """The function `ragged_dp` computes, in plain PyTorch int32 (see
+    _sweep_plain): the tracker rows of tracker_rows, the OV end resolved
+    (opal_tpu/engine/xla.py:238-249)."""
+    _check_inputs(profile, stream)
+    PLAIN_CALLS["ragged_score_plain"] += 1
+    NB, B = stream.lengths.shape
+    Q = profile.shape[0]
+    raw, _ = _sweep_plain(profile, stream, mode, search_type, go, ge,
+                          with_flags, 0, Q, None)
+    if mode == MODE_OV:  # the end is in the last column iff its max beats
+        # the last-row max of the earlier columns
+        ocm, lr = raw[TR_OV_CMAX], raw[TR_BEST]
+        in_last = ocm > raw[TR_OV_PLRM]
+        raw[TR_BEST] = torch.maximum(ocm, lr)
+        raw[TR_BEST_R] = torch.where(in_last, raw[TR_OV_ROW],
+                                     torch.full_like(lr, Q - 1))
+        raw[TR_BEST_C] = torch.where(in_last, stream.lengths.reshape(-1) - 1,
+                                     raw[TR_BEST_C])
+    return _stack_rows(raw, tracker_rows(mode, search_type, with_flags), NB,
+                       B)
+
+
+def ragged_panel_plain(profile: torch.Tensor, stream: Stream, mode: int,
+                       search_type: int, go: int, ge: int,
+                       with_flags: bool = False, row0: int = 0,
+                       rows: int = None, top=None):
+    """The function one panel launch of `ragged_dp` computes, in plain
+    PyTorch int32: ragged_score_plain over the query rows [row0, row0 +
+    rows) of profile [Q, W] with a per-lane top boundary in place of the
+    mode's row -1 wall (top: the previous panel's bottom, None when row0 is
+    0). Returns (tracker rows [NB, len(panel_tracker_rows), B] int32, the
+    panel's bottom: (H, F) [T, L] of its last row at every column, T the
+    longest lane and L = NB * B, or None when the panel ends at row
+    Q-1)."""
+    _check_inputs(profile, stream)
+    Q = profile.shape[0]
+    rows = Q - row0 if rows is None else rows
+    final = row0 + rows == Q
+    if (top is None) != (row0 == 0) or not (
+            0 <= row0 and 1 <= rows and row0 + rows <= Q
+            and row0 % STRIP_ROWS == 0
+            and (final or rows % STRIP_ROWS == 0)):
+        raise ValueError(f"query rows [{row0}, {row0 + rows}) of {Q}: not "
+                         "a panel of whole strips with its top boundary")
+    PLAIN_CALLS["ragged_panel_plain"] += 1
+    NB, B = stream.lengths.shape
+    # an interior NW or HW panel's filler row TR_BEST holds the untouched
+    # last-row max, NEG, as the kernel's does
+    raw, bottom = _sweep_plain(profile, stream, mode, search_type, go, ge,
+                               with_flags, row0, rows, top)
+    return _stack_rows(raw, panel_tracker_rows(mode, search_type, with_flags,
+                                               final), NB, B), bottom
 
 
 def multi_score_plain(profile: torch.Tensor, seg_qs, stream: Stream,

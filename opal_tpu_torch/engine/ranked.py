@@ -6,7 +6,8 @@ The order is the reference tie-break: score descending, then DB index
 ascending (reference: src/opal.h:44-74). Selection is exact:
 
 1. tracker rows become score (and end_q, end_t) per lane on the device
-   (kernels.finalize_device; multi_dp emits final values already);
+   (kernels.finalize_device, or the panel merge of a long query;
+   multi_dp emits final values already);
 2. padding lanes are masked through the per-lane DB index
    (DeviceDatabase.lane_indices, -1 = padding);
 3. ``s_k = topk(score, k)[k-1]``, then two more topk calls emit a SUPERSET
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from ..constants import SEARCH_SCORE
-from . import kernels
+from .backend import finalize_handle
 
 # The invalid-lane sentinel and the padding key. Unreachable by a valid
 # lane: every score of the int32 DP lies above NEG = -2^30.
@@ -83,15 +84,17 @@ def merge_candidates(parts, k, track_end):
     return out
 
 
-def topk_from_handle(tr, ddb, mode, search_type, Q, k):
-    """The ranked top k of one query from its live ragged_score tracker
-    rows (None for an empty database): one selection on the device and one
-    copy of the candidates."""
+def topk_from_handle(handle, ddb, mode, search_type, Q, k):
+    """The ranked top k of one query from its live handle
+    (backend.dispatch_many's: ragged_score's tracker rows, or a long
+    query's panel rows, merged here on the device; None for an empty
+    database): one selection on the device and one copy of the
+    candidates. opal_tpu ranks panel results on the host; the output is
+    the same."""
     track_end = search_type != SEARCH_SCORE
-    if tr is None:
+    if handle is None:
         return merge_candidates([], k, track_end)
-    cols = kernels.finalize_device(tr, ddb.stream.lengths, mode,
-                                   search_type, Q)
+    cols = finalize_handle(handle, ddb, mode, search_type, Q)
     cand = select_topk(cols["score"], cols.get("end_q"), cols.get("end_t"),
                        ddb.lane_indices, k)
     return merge_candidates([cand.cpu().numpy()], k, track_end)

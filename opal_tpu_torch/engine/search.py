@@ -6,9 +6,12 @@ Mirrors opal_tpu/engine/search.py (itself the contract of the reference's
 results already carry a score (and end location when needed) are not
 recomputed (src/opal.cpp:1446-1451).
 
-Scoring runs on the card: one query through the ragged_dp kernel, many
-through stacked multi_dp groups (search_database_multi_arrays), with the
-top k selected on the device (engine/ranked.py). Full alignment (search
+Scoring runs on the card: one query through the ragged_dp kernel (in
+query panels when it is taller than kernels.PANEL_ROWS), many through
+stacked multi_dp groups (search_database_multi_arrays; a long query runs
+alone), with the top k selected on the device (engine/ranked.py). A long
+query needs no other method: the port's lane width never depends on Q, so
+opal_tpu's lane-width downshift (preferred_block_size) has no counterpart. Full alignment (search
 type 2) scores with ends on the card, then reconstructs each path on the
 host (alignment_pass: the reverse-pair banded traceback of traceback.py,
 in C where a compiler is present). Engine(precision="adaptive") runs the

@@ -1,6 +1,7 @@
-"""ragged_dp (with and without its overflow-flag rows) and multi_dp on the
-card: the CUDA kernels against their plain versions, and the serving path,
-the adaptive search and the CLI on the card against the CPU.
+"""ragged_dp (with and without its overflow-flag rows, in query panels and
+through the grouped entry point) and multi_dp on the card: the CUDA kernels
+against their plain versions, and the serving path, the adaptive search,
+long queries and the CLI on the card against the CPU.
 
 These tests need an NVIDIA GPU with nvcc and skip without one. They import
 neither JAX nor opal_tpu, so they also run where only PyTorch is installed:
@@ -234,3 +235,116 @@ def test_cli_x2_on_card_matches_cpu(cuda, capsys):
         outs.append(out[: out.index("\nCpu time")])
     assert outs[0] == outs[1]
     assert len(re.findall(r"^#\d+: ", outs[0], re.M)) == 15
+
+
+def _panel_chain_plain(profile, stream, mode, x, go, ge, with_flags, panels):
+    outs, top = [], None
+    for row0, rows in panels:
+        tr, top = kernels.ragged_panel_plain(profile, stream, mode, x, go, ge,
+                                             with_flags, row0, rows, top)
+        outs.append(tr)
+    return outs
+
+
+@pytest.mark.parametrize("go,ge", [(3, 1), (2, 2), (0, 0), (1, 3)])
+@pytest.mark.parametrize("x", [0, 1])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_panel_kernel_matches_plain(cuda, monkeypatch, mode, x, go, ge):
+    """The panel role of ragged_dp, panel by panel, against the plain
+    chain: queries of 17, 33 and 80 rows in 16- and 32-row panels (tails
+    of 1 and 16 rows), with and without flags, a partial first block."""
+    matrix = ScoreMatrix.blosum50().matrix
+    rng = np.random.default_rng(200 + 10 * mode + x)
+    stream = _stream(go + 7, 300, 150 if ge > go else 250, 96, 24, cuda)
+    for Q, rows in ((17, 16), (33, 16), (33, 32), (80, 32)):
+        monkeypatch.setattr(kernels, "PANEL_ROWS", rows)
+        panels = kernels.plan_panels(Q)
+        profile = torch.from_numpy(kernels.build_profile(
+            matrix[rng.integers(0, 24, size=Q)].T)).to(cuda)
+        for flags in (False, True):
+            launches = kernels.LAUNCHES["ragged_dp_panel"]
+            got = kernels.ragged_panel_score(profile, stream, mode, x, go,
+                                             ge, flags)
+            assert kernels.LAUNCHES["ragged_dp_panel"] - launches == len(
+                panels)
+            want = _panel_chain_plain(profile, stream, mode, x, go, ge,
+                                      flags, panels)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_panel_waves_match_one_launch(cuda, monkeypatch):
+    """Panels inside several waves equal the one-sweep columns."""
+    matrix = ScoreMatrix.blosum50().matrix
+    profile = torch.from_numpy(kernels.build_profile(
+        matrix[np.arange(100) % 24].T)).to(cuda)
+    stream = _stream(5, 1000, 700, 64, 24, cuda)
+    monkeypatch.setattr(kernels, "PANEL_ROWS", 32)
+    monkeypatch.setattr(kernels, "WAVE_CELLS",
+                        int(stream.host_offsets[-1]) // 5)
+    for mode in range(4):
+        whole = kernels.finalize_device(
+            kernels.ragged_score(profile, stream, mode, 1, 3, 1),
+            stream.lengths, mode, 1, 100)
+        before = kernels.LAUNCHES["ragged_dp_panel"]
+        events = []
+        trs = kernels.ragged_panel_score(profile, stream, mode, 1, 3, 1,
+                                         events=events)
+        assert kernels.LAUNCHES["ragged_dp_panel"] - before >= 5 * 4
+        assert len(events) == kernels.LAUNCHES["ragged_dp_panel"] - before
+        got = kernels.finalize_panels_device(trs, kernels.plan_panels(100),
+                                             stream.lengths, mode, 1)
+        for k in whole:
+            torch.testing.assert_close(got[k], whole[k], rtol=0, atol=0)
+
+
+def test_long_query_search_on_card_matches_cpu(cuda, monkeypatch):
+    """search_database_arrays with a 300-residue query in 64-row panels:
+    the card against the CPU and against the one sweep, x0 and x1, top_k
+    too."""
+    sm = ScoreMatrix.blosum50()
+    rng = np.random.default_rng(14)
+    query = rng.integers(0, 24, size=300).astype(np.uint8)
+    db = [rng.integers(0, 24, size=int(L)).astype(np.uint8)
+          for L in rng.integers(1, 500, size=700)]
+    for x in (0, 1):
+        for k in (0, 9):
+            monkeypatch.setattr(kernels, "PANEL_ROWS", 4096)
+            sweep = search_database_arrays(query, db, 3, 1, sm.matrix,
+                                           search_type=x, top_k=k,
+                                           engine=Engine(block_size=128))
+            monkeypatch.setattr(kernels, "PANEL_ROWS", 64)
+            launches = kernels.LAUNCHES["ragged_dp_panel"]
+            panels = search_database_arrays(query, db, 3, 1, sm.matrix,
+                                            search_type=x, top_k=k,
+                                            engine=Engine(block_size=128))
+            assert kernels.LAUNCHES["ragged_dp_panel"] > launches
+            cpu = search_database_arrays(query, db, 3, 1, sm.matrix,
+                                         search_type=x, top_k=k,
+                                         engine=Engine(device="cpu",
+                                                       block_size=128))
+            for c in cpu:
+                np.testing.assert_array_equal(panels[c], sweep[c])
+                np.testing.assert_array_equal(panels[c], cpu[c])
+
+
+@pytest.mark.parametrize("with_flags", [False, True])
+@pytest.mark.parametrize("x", [0, 1])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_grouped_kernel_matches_plain(cuda, mode, x, with_flags):
+    """grouped_score (ragged_dp over dense [G, T, B] blocks laid out on the
+    card) against grouped_score_plain; T is no multiple of 4."""
+    matrix = ScoreMatrix.blosum50().matrix
+    rng = np.random.default_rng(300 + mode)
+    G, T, Bw = 3, 201, 96
+    lengths = rng.integers(0, T + 1, size=(G, Bw)).astype(np.int32)
+    letters = rng.integers(0, 24, size=(G, T, Bw)).astype(np.int8)
+    profile = torch.from_numpy(kernels.build_profile(
+        matrix[rng.integers(0, 24, size=45)].T)).to(cuda)
+    args = (profile, torch.from_numpy(letters).to(cuda),
+            torch.from_numpy(lengths).to(cuda), mode, x, 3, 1, with_flags)
+    launches = kernels.LAUNCHES["ragged_dp_grouped"]
+    got = kernels.grouped_score(*args)
+    assert kernels.LAUNCHES["ragged_dp_grouped"] > launches
+    torch.testing.assert_close(got, kernels.grouped_score_plain(*args),
+                               rtol=0, atol=0)
