@@ -5,23 +5,33 @@ Phases, one JSON line each; any failure raises and exits non-zero before
 the last line:
 
 1. device  - the card's name and power limit (nvidia-smi);
-2. build   - nvcc builds every kernel from opal_tpu_torch/engine/csrc, one
-             nvcc per source, all started together, then cc the host C
-             library (opal_tpu_torch/_native: FASTA tokenizer, traceback);
-3. kernel  - ragged_dp (without and with its overflow-flag rows) and
+2. build   - nvcc builds every kernel from opal_tpu_torch/engine/csrc and
+             every probe from opal_tpu_torch/tools/csrc, one nvcc per
+             source, all started together, then cc the host C library
+             (opal_tpu_torch/_native: FASTA tokenizer, traceback);
+3. tools   - the measurement tools' main path (opal_tpu_torch.tools:
+             roofline, exp_unroll, exp_sstack_ablate, each probe launched):
+             the int32 / DPX / f32 issue rates per SM per clock at the SM
+             clock read under load, the probe loops' SASS opcode counts,
+             the F-chain scan, ragged_dp's cells/s by slope, the column-body
+             ablation and its tail pair (192 CUDA blocks against a full
+             grid), the stacking ablation; then every probe variant against
+             its plain version at the tools' widths, exact. The measured
+             ceiling gives every kernel its bound_measured_ms;
+4. kernel  - ragged_dp (without and with its overflow-flag rows) and
              multi_dp against their plain PyTorch versions, both on the
              card, on random streams (4 modes x score / score+end, several
              gap pairs, query lengths and stacked segment sets, partial
              first blocks, several waves; the flag cases reach 8, 16 and
              32 bits in every mode); exact equality;
-4. goldens - the port on the card against the reference binary's output
+5. goldens - the port on the card against the reference binary's output
              for the 12,071-sequence fixture: result lines of the 16 x0/x1
              files, result lines and alignment blocks of the 6 x2 files;
-5. main    - the single-query path at full scale: O74807 (SW, score,
+6. main    - the single-query path at full scale: O74807 (SW, score,
              BLOSUM50, gaps 3/1) against 541,762 synthetic sequences held
              resident, through search_database_arrays; then ragged_dp
              against the plain version on blocks of that database;
-6. serve   - the serving path on the same resident database:
+7. serve   - the serving path on the same resident database:
              opal_tpu_torch.serve.Server answers the 15 queries of
              tests/port_data/uniprot_sprot15.fasta as one batch request
              (stacked multi_dp launches, top 10 selected on the card), as
@@ -30,25 +40,25 @@ the last line:
              checked against the host ranking of a full ragged_dp score
              table; then multi_dp against its plain version on blocks of
              that database;
-7. cascade - Engine(precision="adaptive") at full scale (SW x0, NW x1)
+8. cascade - Engine(precision="adaptive") at full scale (SW x0, NW x1)
              through ragged_dp's flag rows: scores and ends against the
              int32 path, precision counts, search_database_char_sw, the
              flag kernel against its plain version on blocks;
-8. serve_align - the 15-query batch with align: true, top 10, against
+9. serve_align - the 15-query batch with align: true, top 10, against
              search_database(search_type=2, align_top_k=10) per query;
-9. cli     - python -m opal_tpu_torch.cli as subprocesses on a FASTA copy
+10. cli     - python -m opal_tpu_torch.cli as subprocesses on a FASTA copy
              of the database: -s -x 0 (trailer, and a --profile run for the
              card's idle share) and -x 2 --align-top 10 against the API;
-10. kernel_panels - the panel role of ragged_dp (K6) against the plain
+11. kernel_panels - the panel role of ragged_dp (K6) against the plain
              chain of ragged_panel_plain, panel by panel, exact: 4 modes x
              x0/x1 x flags off and on, gaps (3,1), (2,2), (0,0), (1,3),
              queries of 17 to 1,000 rows in 16-, 32- and 48-row panels (tails
              of 1 row among them), partial first blocks, several waves, and a
              100,000-residue query on the resident database's first block;
-11. kernel_grouped - grouped_score (K7, ragged_dp over dense [G, T, B]
+12. kernel_grouped - grouped_score (K7, ragged_dp over dense [G, T, B]
              blocks) against grouped_score_plain, exact, and timed on 64
              blocks of the resident database;
-12. long_query - a 100,000-residue query (SW x0) against the resident
+13. long_query - a 100,000-residue query (SW x0) against the resident
              database through search_database_arrays in panels: seconds,
              GCUPS, kernel ms per launch and per wave, launches, the bound;
              the same search at PANEL_ROWS 1,024, 4,096, 16,384 and in one
@@ -121,7 +131,8 @@ def op_bound_ms(cells, maxes=CELL_MAXES, adds=CELL_ADDS):
 def ptxas_summary(log):
     """{instantiation: "N registers, S spill bytes"} from ptxas's report;
     ragged_dp's instantiations read mode<M>_end<E>_flags<F> (and _panel for
-    its panel role), multi_dp's mode<M>_end<E>."""
+    its panel role), multi_dp's mode<M>_end<E>, a probe's
+    <name>_kernel<template arguments>."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -129,6 +140,11 @@ def ptxas_summary(log):
             t = re.search(r"ILi(\d+)ELb(\d)E(?:Lb(\d)E)?(?:Lb(\d)E)?",
                           m.group(1))
             name = m.group(1)
+            probe = re.search(r"(peak|scan|unroll|sstack)_kernel", name)
+            if probe:  # a tools probe: its template arguments
+                t = None
+                name = probe.group(0) + "<" + ",".join(
+                    re.findall(r"L[ib](\d+)E", name)) + ">"
             if t:
                 name = f"mode{t.group(1)}_end{t.group(2)}" + (
                     f"_flags{t.group(3)}" if t.group(3) else "") + (
@@ -140,6 +156,180 @@ def ptxas_summary(log):
         if m and name:
             out[name] = f"{m.group(1)} registers, " + out.get(name, "")
     return out
+
+
+def measured_bound_ms(cells, ceiling, maxes=CELL_MAXES):
+    """The least milliseconds for `cells` cells of `maxes` max-type
+    instructions each at the max-type rate the roofline probe measured on
+    this card (per SM per clock, at the SM clock read while it ran)."""
+    return cells * maxes / (ceiling["max_per_sm_clk"] * ceiling["sm_count"]
+                            * ceiling["sm_mhz_under_load"] * 1e6) * 1e3
+
+
+def phase_tools(smi):
+    """The measurement tools' main path, then each probe against its plain
+    version (see the module docstring, phase 3)."""
+    import torch
+
+    from opal_tpu_torch import tools
+    from opal_tpu_torch.engine import kernels
+    from opal_tpu_torch.tools import exp_sstack_ablate as ss
+    from opal_tpu_torch.tools import exp_unroll, roofline
+
+    t0 = time.perf_counter()
+    tools.reset_counts()
+    kernels.reset_counts()
+    roof = roofline.run("cuda", seconds=0.5)
+    unroll = exp_unroll.run("cuda", ceiling=roof["ceiling"])
+    sstack = ss.run("cuda")
+    launches = dict(tools.LAUNCHES)
+    check(all(v > 0 for v in launches.values()),
+          f"a tool launched no probe: {launches}")
+    check(kernels.PLAIN_CALLS["ragged_score_plain"] == 0,
+          "a tool ran ragged_dp's plain version")
+    run_s = time.perf_counter() - t0
+    ceil = roof["ceiling"]
+    res = {"phase": "tools", "card": smi, "launches": launches,
+           "ceiling": ceil, "max_sm_mhz": roof["max_sm_mhz"],
+           "peak": roof["peak"]["variants"], "scan": roof["scan"],
+           "kernel_slope": roof["kernel"],
+           "unroll": unroll["variants"], "unroll_B": unroll["B"],
+           "tail": unroll["tail"], "sstack": sstack["variants"],
+           "sstack_B": sstack["B"], "run_s": run_s}
+    emit({k: res[k] for k in ("phase", "card", "ceiling", "max_sm_mhz",
+                              "peak", "launches")})
+
+    # each probe against its plain version at the main path's shapes
+    entries = {}
+
+    def diff(got, want):  # float64 holds the int32 and f32 states exactly
+        d = (got.double() - want.double()).abs()
+        return int((d != 0).sum()), float(d.max()) if d.numel() else 0.0
+
+    n = roof["peak"]["elements"]
+    cases = bad = err = 0
+    for v in roofline.VARIANTS:
+        for seed in (None, 1):
+            st = roofline.peak_state(v, n, "cuda", seed=seed)
+            b, e = diff(roofline.peak(st, 64, 8, v),
+                        roofline.peak_plain(st, 64, 8, v))
+            cases, bad, err = cases + 1, bad + b, max(err, e)
+    st = roofline.peak_state("i32", n, "cuda", seed=1)
+    peak_i32 = roof["peak"]["variants"]["i32"]
+    updates = n * roof["peak"]["iters"] * roof["peak"]["unroll"] * 8
+    # an update needs one max-type instruction at least (nvcc's own i32
+    # and DPX loops issue just that: one VIADDMNMX)
+    ops_ms = op_bound_ms(updates, 1, 0)[0]
+    entries["roofline_peak"] = {
+        "replaces": "tools/roofline.py:97:build_peak_kernel",
+        "source": "opal_tpu_torch/tools/csrc/roofline.cu",
+        "checked_cases": cases, "mismatches": bad, "max_abs_err": err,
+        "ms": peak_i32["ms"],
+        "ms_at": f"i32 form, {n} elements x {updates // n} chain updates",
+        "variants_ms": {v: r["ms"] for v, r in res["peak"].items()},
+        "plain_ms": time_cuda(lambda: roofline.peak_plain(st, 64, 8, "i32"),
+                              1),
+        "plain_at": f"i32 form, {n} elements x {64 * 8 * 8} chain updates, "
+                    f"where the probe takes {time_cuda(lambda: roofline.peak(st, 64, 8, 'i32'), 3):.3f} ms",
+        "bound_ms": ops_ms, "bound_by": "operations",
+        "bound_measured_ms": measured_bound_ms(updates, ceil, 1)}
+
+    sc = roof["scan"]
+    cases = bad = err = 0
+    for seed in (0, 1):
+        H = torch.from_numpy(np.random.default_rng(seed).integers(
+            -300, 300, (sc["qp"], sc["B"])).astype(np.int32)).cuda()
+        b, e = diff(roofline.scan(H, 64, 1), roofline.scan_plain(H, 64, 1))
+        cases, bad, err = cases + 1, bad + b, max(err, e)
+    row_cells = sc["qp"] * sc["B"] * sc["columns"]
+    entries["roofline_scan"] = {
+        "replaces": "tools/roofline.py:141:build_scan_kernel",
+        "source": "opal_tpu_torch/tools/csrc/roofline.cu",
+        "checked_cases": cases, "mismatches": bad, "max_abs_err": err,
+        "ms": sc["ms"], "ms_at": f"[{sc['qp']}, {sc['B']}] x "
+                                 f"{sc['columns']} columns",
+        "plain_ms": time_cuda(lambda: roofline.scan_plain(H, 64, 1), 1),
+        "plain_at": f"the same H x 64 columns, where the probe takes "
+                    f"{time_cuda(lambda: roofline.scan(H, 64, 1), 3):.3f} ms",
+        # a row needs two max-type instructions (the chain's and H's)
+        "bound_ms": op_bound_ms(row_cells, 2, 0)[0], "bound_by": "operations",
+        "bound_measured_ms": measured_bound_ms(row_cells, ceil, 2)}
+
+    # exp_unroll: every variant and ragged_dp against the plain version on
+    # the tool's lanes, 8 chunks long
+    B = unroll["B"]
+    profile, Q = exp_unroll.random_profile(unroll["qpad"], 1, 0, "cuda")
+    stream = exp_unroll.random_stream(B, 8 * 64, 1, "cuda")
+    t = time.perf_counter()
+    want = exp_unroll.unroll_plain(profile, stream)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    cases = bad = err = 0
+    for v in exp_unroll.VARIANTS:
+        b, e = diff(exp_unroll.unroll_score(profile, stream, v), want)
+        cases, bad, err = cases + 1, bad + b, max(err, e)
+    b, e = diff(exp_unroll.single(profile, stream), want)
+    cases, bad, err = cases + 1, bad + b, max(err, e)
+    cells = unroll["cells"]
+    base = unroll["variants"]["base"]
+    entries["exp_unroll"] = {
+        "replaces": "tools/exp_unroll.py:127:build",
+        "source": "opal_tpu_torch/tools/csrc/exp_unroll.cu",
+        "checked_cases": cases, "mismatches": bad, "max_abs_err": err,
+        "ms": base["ms"], "ms_at": f"base, Q {unroll['Q']} x {B} lanes x "
+                                   f"{unroll['columns']} columns",
+        "variants_ms": {v: r["ms"] for v, r in unroll["variants"].items()},
+        "plain_ms": plain_ms,
+        "plain_at": f"the same lanes, 512 columns, where base takes "
+                    f"{time_cuda(lambda: exp_unroll.unroll_score(profile, stream), 3):.3f} ms",
+        "bound_ms": op_bound_ms(cells)[0], "bound_by": "operations",
+        "bound_measured_ms": measured_bound_ms(cells, ceil)}
+    del stream
+
+    # exp_sstack: every S, noprof and s1ctl against the plain version on
+    # the tool's streams, 8 chunks long
+    S = sstack["S"]
+    profile, stream, meta, nb = ss.random_inputs(
+        sstack["qpad"], sstack["B"], 8, S, sstack["per_block"], 1, 1, "cuda")
+    t = time.perf_counter()
+    want = ss.sstack_plain(profile, stream, meta, nb)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    cases = bad = err = 0
+    for lanes in (1, 2, 4):
+        b, e = diff(ss.sstack_score(profile, stream, meta, nb, lanes), want)
+        cases, bad, err = cases + 1, bad + b, max(err, e)
+    b, e = diff(ss.sstack_score(profile, stream, meta, nb, S, True),
+                ss.sstack_plain(profile, stream, meta, nb, True))
+    cases, bad, err = cases + 1, bad + b, max(err, e)
+    ctl = ss.s1ctl_inputs(profile, stream, meta, S)
+    b, e = diff(ss.sstack_score(*ctl, nb, 1), ss.sstack_plain(*ctl, nb))
+    cases, bad, err = cases + 1, bad + b, max(err, e)
+    cells = sstack["cells"]
+    entries["exp_sstack"] = {
+        "replaces": "tools/exp_sstack_ablate.py:182:build_variant",
+        "source": "opal_tpu_torch/tools/csrc/exp_sstack.cu",
+        "checked_cases": cases, "mismatches": bad, "max_abs_err": err,
+        "ms": sstack["variants"][f"full{S}"]["ms"],
+        "ms_at": f"full at S {S}, qpad {sstack['qpad']} x {S} x "
+                 f"{sstack['B']} lanes x {sstack['columns']} columns",
+        "variants_ms": {v: r["ms"] for v, r in sstack["variants"].items()},
+        "plain_ms": plain_ms,
+        "plain_at": f"the same streams, 512 columns, where full at S {S} "
+                    f"takes {time_cuda(lambda: ss.sstack_score(profile, stream, meta, nb, S), 3):.3f} ms",
+        "bound_ms": op_bound_ms(cells)[0], "bound_by": "operations",
+        "bound_measured_ms": measured_bound_ms(cells, ceil)}
+    del stream
+    for name, e in entries.items():
+        e["launches"] = launches[name]
+    res["entries"] = entries
+    res["seconds"] = round(time.perf_counter() - t0, 1)
+    emit({k: res[k] for k in ("phase", "scan", "kernel_slope", "unroll",
+                              "unroll_B", "tail", "sstack", "sstack_B",
+                              "entries", "run_s", "seconds")})
+    bad = {k: e["mismatches"] for k, e in entries.items() if e["mismatches"]}
+    check(not bad, f"probes disagree with their plain versions: {bad}")
+    return res
 
 
 def random_stream(rng, n, max_len, B, lut_size, device):
@@ -1545,8 +1735,17 @@ def main():
 
     from opal_tpu_torch import _native
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from opal_tpu_torch import tools
+
     t0 = time.perf_counter()
-    log = _build.build_all(report=True)
+    # the kernels' and the probes' nvcc processes all start together
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(_build.build_all, report=True),
+                pool.submit(_build.build_all, tools.PROBES, True,
+                            tools.CSRC)]
+        log = {k: v for j in jobs for k, v in j.result().items()}
     t1 = time.perf_counter()
     native = _native.available()  # the host C library (FASTA, traceback)
     emit({"phase": "build", "seconds": round(t1 - t0, 1),
@@ -1559,6 +1758,8 @@ def main():
 
     sm = ScoreMatrix.blosum50()
     dev = torch.device("cuda")
+    tool_res = phase_tools(smi)
+    ceil = tool_res["ceiling"]
     kern = phase_kernel(sm.matrix, dev)
     kern_flags = phase_kernel_flags(sm.matrix, dev)
     kern_multi = phase_kernel_multi(sm.matrix, dev)
@@ -1588,6 +1789,8 @@ def main():
                     f"{main_res['blocks']} blocks",
         "bound_ms": main_res["bound_ms"],
         "bound_by": main_res["bound_by"],
+        "bound_measured_ms": measured_bound_ms(
+            main_res["Q"] * main_res["residues"], ceil),
         "library_ms": None,
     }, {
         "name": "multi_dp", "route": "cuda",
@@ -1608,6 +1811,8 @@ def main():
                     f"{serve_res['blocks']} blocks",
         "bound_ms": serve_res["bound_ms"],
         "bound_by": serve_res["bound_by"],
+        "bound_measured_ms": measured_bound_ms(serve_res["group_cells"],
+                                               ceil),
         "library_ms": None,
     }, {
         "name": "ragged_dp_flags", "route": "cuda",
@@ -1626,6 +1831,8 @@ def main():
                     f"{casc['blocks']} blocks",
         "bound_ms": casc["modes"]["SW"]["bound_ms"],
         "bound_by": casc["modes"]["SW"]["bound_by"],
+        "bound_measured_ms": measured_bound_ms(
+            casc["Q"] * casc["residues"], ceil, FLAG_CELL_MAXES["SW"]),
         "library_ms": None,
     }, {
         "name": "ragged_dp_panel", "route": "cuda",
@@ -1647,6 +1854,7 @@ def main():
                     f"takes {longq['sub_kernel_ms']:.3f} ms",
         "bound_ms": longq["bound_ms"],
         "bound_by": longq["bound_by"],
+        "bound_measured_ms": measured_bound_ms(longq["cells"], ceil),
         "library_ms": None,
     }, {
         "name": "ragged_dp_grouped", "route": "cuda",
@@ -1664,8 +1872,10 @@ def main():
         "plain_at": "the same inputs",
         "bound_ms": grouped["bound_ms"],
         "bound_by": grouped["bound_by"],
+        "bound_measured_ms": measured_bound_ms(grouped["cells"], ceil),
         "library_ms": None,
-    }]})
+    }] + [dict(name=name, route="cuda", **e, library_ms=None)
+          for name, e in tool_res["entries"].items()]})
     # count is what torch sees: 1 on the one-card machine this runs on
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

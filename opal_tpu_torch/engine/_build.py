@@ -1,10 +1,12 @@
-"""Builds the CUDA sources under csrc/ with nvcc and loads them with ctypes.
+"""Builds CUDA sources with nvcc and loads them with ctypes.
 
-Each `csrc/<name>.cu` (ragged_dp, multi_dp) exports a plain C interface
-and compiles, at first use, into `_build/lib<name>-<hash>.so` beside this
-file (the directory is git-ignored). The hash covers the source and the
-flags, so an edited source builds anew and an unchanged one loads what is
-there.
+Each `<csrc>/<name>.cu` exports a plain C interface and compiles, at first
+use, into `_build/lib<name>-<hash>.so` beside this file (the directory is
+git-ignored). `csrc` is this package's `csrc/` (ragged_dp, multi_dp) unless
+a caller names another source directory (opal_tpu_torch/tools/csrc holds
+the probes); names are unique across the directories. The hash covers the
+source and the flags, so an edited source builds anew and an unchanged one
+loads what is there.
 """
 from __future__ import annotations
 
@@ -39,15 +41,20 @@ def nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def _target(name: str, csrc: Path = CSRC) -> Path:
+    src = (Path(csrc) / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_all(names=KERNELS, report: bool = False) -> dict:
-    """Compile every missing library, one nvcc per source, all started
-    together.
+def so_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the library of `csrc/<name>.cu` is (or will be) built."""
+    return _target(name, csrc)
+
+
+def build_all(names=KERNELS, report: bool = False, csrc: Path = CSRC) -> dict:
+    """Compile every missing library of `names` (sources in `csrc`), one
+    nvcc per source, all started together.
 
     Returns {name: {"seconds": build time (0.0 when already built),
     "log": nvcc's output, with ptxas's register report when `report`}}.
@@ -56,13 +63,13 @@ def build_all(names=KERNELS, report: bool = False) -> dict:
     out, running = {}, {}
     t0 = time.perf_counter()
     for name in names:
-        so = _target(name)
+        so = _target(name, csrc)
         if so.exists():
             out[name] = {"seconds": 0.0, "log": ""}
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *FLAGS, *(REPORT_FLAGS if report else []),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+               "-o", str(tmp), str(Path(csrc) / f"{name}.cu")]
         running[name] = (so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
@@ -80,12 +87,13 @@ def build_all(names=KERNELS, report: bool = False) -> dict:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The built library `name`, building it first if needed."""
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """The built library `name` (source `csrc/<name>.cu`), building it
+    first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        so = _target(name)
+        so = _target(name, csrc)
         if not so.exists():
-            build_all((name,))
+            build_all((name,), csrc=csrc)
         lib = _loaded[name] = ctypes.CDLL(str(so))
     return lib

@@ -348,3 +348,74 @@ def test_grouped_kernel_matches_plain(cuda, mode, x, with_flags):
     assert kernels.LAUNCHES["ragged_dp_grouped"] > launches
     torch.testing.assert_close(got, kernels.grouped_score_plain(*args),
                                rtol=0, atol=0)
+
+
+# the measurement tools' probes (opal_tpu_torch.tools, csrc/*.cu)
+
+@pytest.mark.parametrize("unroll", [1, 8])
+@pytest.mark.parametrize("variant", ["f32", "i32", "dpx", "max3"])
+def test_peak_probe_matches_plain(cuda, variant, unroll):
+    from opal_tpu_torch.tools import LAUNCHES, roofline
+
+    for seed in (0, 1):
+        st = roofline.peak_state(variant, 1000, cuda, seed=seed)
+        launches = LAUNCHES["roofline_peak"]
+        got = roofline.peak(st, 5, unroll, variant)
+        assert LAUNCHES["roofline_peak"] > launches
+        torch.testing.assert_close(
+            got, roofline.peak_plain(st, 5, unroll, variant), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("qp", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_scan_probe_matches_plain(cuda, qp):
+    from opal_tpu_torch.tools import LAUNCHES, roofline
+
+    H = torch.from_numpy(np.random.default_rng(qp).integers(
+        -300, 300, (qp, 300)).astype(np.int32)).to(cuda)
+    launches = LAUNCHES["roofline_scan"]
+    got = roofline.scan(H, 7, 3)
+    assert LAUNCHES["roofline_scan"] > launches
+    torch.testing.assert_close(got, roofline.scan_plain(H, 7, 3), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("variant", ["base", "fold2", "dpx", "dpx_fold2",
+                                     "r8", "r32"])
+def test_unroll_probe_matches_plain(cuda, variant):
+    """Every column-body variant against the plain version and ragged_dp,
+    on lanes of ragged (odd and even) lengths in one block."""
+    from opal_tpu_torch.tools import LAUNCHES, exp_unroll
+
+    matrix = ScoreMatrix.blosum50().matrix
+    rng = np.random.default_rng(40)
+    B = 300
+    lengths = rng.integers(0, 131, size=B).astype(np.int32)
+    letters = rng.integers(0, 24, size=(132, B)).astype(np.int8)
+    stream = kernels.pack_stream([letters], [lengths], B, cuda)
+    for Q in (1, 8, 17, 40):
+        profile = torch.from_numpy(kernels.build_profile(
+            matrix[rng.integers(0, 24, size=Q)].T)).to(cuda)
+        launches = LAUNCHES["exp_unroll"]
+        got = exp_unroll.unroll_score(profile, stream, variant)
+        assert LAUNCHES["exp_unroll"] > launches
+        want = exp_unroll.unroll_plain(profile, stream)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(exp_unroll.single(profile, stream), want,
+                                   rtol=0, atol=0)
+    assert exp_unroll.occupancy(variant) > 0
+
+
+@pytest.mark.parametrize("noprof", [False, True])
+@pytest.mark.parametrize("S", [1, 2, 4])
+def test_sstack_probe_matches_plain(cuda, S, noprof):
+    from opal_tpu_torch.tools import LAUNCHES, exp_sstack_ablate as ss
+
+    for qpad in (16, 37):
+        profile, stream, meta, nb = ss.random_inputs(qpad, 200, 5, 4, 2, 1,
+                                                     qpad, cuda)
+        launches = LAUNCHES["exp_sstack"]
+        got = ss.sstack_score(profile, stream, meta, nb, S, noprof)
+        assert LAUNCHES["exp_sstack"] > launches
+        torch.testing.assert_close(
+            got, ss.sstack_plain(profile, stream, meta, nb, noprof), rtol=0,
+            atol=0)

@@ -1,8 +1,8 @@
-"""The port stands alone: opal_tpu_torch (its CLI, server, cascade and
-traceback included) and chip_smoke.py import nothing of JAX or opal_tpu,
-importing the package builds and touches nothing, and the
-default (CUDA) entry points raise instead of running on the CPU when CUDA
-is absent."""
+"""The port stands alone: opal_tpu_torch (its CLI, server, cascade,
+traceback and measurement tools included) and chip_smoke.py import nothing
+of JAX or opal_tpu, importing the package builds and touches nothing, and
+the default (CUDA) entry points raise instead of running on the CPU when
+CUDA is absent."""
 import ast
 import os
 import shutil
@@ -48,6 +48,9 @@ def test_package_import_pulls_in_no_jax():
             "import opal_tpu_torch.cli, opal_tpu_torch.serve; "
             "import opal_tpu_torch.engine.cascade; "
             "import opal_tpu_torch.traceback, opal_tpu_torch.checkpoint; "
+            "import opal_tpu_torch.tools.roofline, "
+            "opal_tpu_torch.tools.exp_unroll, "
+            "opal_tpu_torch.tools.exp_sstack_ablate; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'opal_tpu')))")
     env = dict(os.environ, PYTHONPATH=ROOT)
