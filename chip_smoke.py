@@ -22,14 +22,27 @@ the last line:
              multi_dp against their plain PyTorch versions, both on the
              card, on random streams (4 modes x score / score+end, several
              gap pairs, query lengths and stacked segment sets, partial
-             first blocks, several waves; the flag cases reach 8, 16 and
-             32 bits in every mode); exact equality;
+             first blocks, passes through scratch in several waves; the
+             flag cases reach 8, 16 and 32 bits in every mode); exact
+             equality;
+4b. kernel_mapping - the strip-group mapping (G threads per lane) against
+             the plain versions: lanes of mixed lengths and empty lanes in
+             one warp, queries of 1, 15, 16, 17, 127, 128, 129 and 1,000
+             rows at every G (kernels.MAX_GROUP 1-8, passes past the first
+             through scratch), every G in one launch, SW ends and OV
+             last-column maxima tied across strips of different threads,
+             multi_dp segments that start mid-pass; exact;
+4c. soak    - opal_tpu_torch.tools.soak: 120 random problems (alphabets,
+             matrices with entries near the int32 bound, gap pairs with
+             ge > go and 0/0, query lengths, adversarial length mixes)
+             through ragged_dp and multi_dp against the scalar oracle;
 5. goldens - the port on the card against the reference binary's output
              for the 12,071-sequence fixture: result lines of the 16 x0/x1
              files, result lines and alignment blocks of the 6 x2 files;
 6. main    - the single-query path at full scale: O74807 (SW, score,
              BLOSUM50, gaps 3/1) against 541,762 synthetic sequences held
-             resident, through search_database_arrays; then ragged_dp
+             resident, through search_database_arrays; ragged_dp's ms per
+             launch and the launch plan's G per block; then ragged_dp
              against the plain version on blocks of that database;
 7. serve   - the serving path on the same resident database:
              opal_tpu_torch.serve.Server answers the 15 queries of
@@ -70,6 +83,7 @@ Then the kernels line and the last line {"ok": true, "device": {...}}.
 Needs CUDA, nvcc and the repository checkout around this file; imports
 nothing of JAX or opal_tpu.
 """
+import contextlib
 import gzip
 import json
 import os
@@ -332,6 +346,39 @@ def phase_tools(smi):
     return res
 
 
+@contextlib.contextmanager
+def plan_knobs(**values):
+    """Set kernels' launch-plan constants (MAX_GROUP, SCRATCH_CELLS,
+    RESIDENT_THREADS_PER_SM, PANEL_ROWS) for the duration of a block."""
+    from opal_tpu_torch.engine import kernels
+
+    saved = {k: getattr(kernels, k) for k in values}
+    for k, v in values.items():
+        setattr(kernels, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(kernels, k, v)
+
+
+def plan_groups_summary(plan, ddb):
+    """{G: {blocks, residues, CUDA blocks, shortest and longest lane}} of a
+    launch plan over the resident database."""
+    from opal_tpu_torch.engine import kernels
+
+    out = {}
+    for g in sorted(set(plan.groups.tolist())):
+        bl = np.flatnonzero(plan.groups == g)
+        lens = np.concatenate([ddb.blocks[b].lengths[:ddb.blocks[b].n]
+                               for b in bl])
+        out[int(g)] = {"blocks": len(bl), "residues": int(lens.sum()),
+                       "cuda_blocks": len(bl) * -(-ddb.block_size * int(g)
+                                                  // kernels.THREADS),
+                       "lane_min": int(lens.min()), "lane_max": int(lens.max())}
+    return out
+
+
 def random_stream(rng, n, max_len, B, lut_size, device):
     """A random database of n sequences (lengths 1..max_len, both ends
     present) packed as the resident stream; the first block is partial
@@ -416,23 +463,23 @@ def phase_kernel(matrix, dev):
             emit({"phase": "kernel", "mismatch": {
                 "mode": mode, "x": x, "go": go, "ge": ge, "Q": Q,
                 "tmax": tmax, "B": B, "entries": bad}})
-    # several launches (waves) over one stream
+    # several launches (waves) over one stream: G capped at 1 and 4 leaves
+    # passes past the first, handed on through scratch, and a small
+    # scratch budget splits the database into waves
     profile = torch.from_numpy(kernels.build_profile(
         matrix[rng.integers(0, A, size=110)].T)).to(dev)
     stream = random_stream(rng, 2000, 2000, 128, A, dev)
-    wave_cells = kernels.WAVE_CELLS
-    kernels.WAVE_CELLS = int(stream.host_offsets[-1]) // 4
-    try:
-        for mode in range(4):
-            before = kernels.LAUNCHES["ragged_dp"]
-            bad, err = compare(profile, stream, mode, 1, 3, 1)
-            check(kernels.LAUNCHES["ragged_dp"] - before > 1,
-                  "wave case ran in one launch")
-            n_cases += 1
-            mismatches += bad
-            max_err = max(max_err, err)
-    finally:
-        kernels.WAVE_CELLS = wave_cells
+    for max_group in (1, 4):
+        with plan_knobs(MAX_GROUP=max_group,
+                        SCRATCH_CELLS=int(stream.host_offsets[-1]) // 4):
+            for mode in range(4):
+                before = kernels.LAUNCHES["ragged_dp"]
+                bad, err = compare(profile, stream, mode, 1, 3, 1)
+                check(kernels.LAUNCHES["ragged_dp"] - before > 1,
+                      "wave case ran in one launch")
+                n_cases += 1
+                mismatches += bad
+                max_err = max(max_err, err)
     res = {"phase": "kernel", "kernel": "ragged_dp", "cases": n_cases,
            "mismatches": mismatches, "max_abs_err": max_err, "tolerance": 0,
            "seconds": round(time.perf_counter() - t0, 1)}
@@ -490,20 +537,17 @@ def phase_kernel_flags(matrix, dev):
                         emit({"phase": "kernel_flags", "mismatch": {
                             "mode": mode, "x": x, "go": go, "ge": ge,
                             "Q": Q, "scale": scale, "tmax": tmax, "B": B}})
-    # several launches (waves) over one stream
+    # several launches (waves) over one stream, passes through scratch
     profile = torch.from_numpy(kernels.build_profile(
         40 * matrix[rng.integers(0, A, size=110)].T)).to(dev)
     stream = random_stream(rng, 2000, 1500, 128, A, dev)
-    wave_cells = kernels.WAVE_CELLS
-    kernels.WAVE_CELLS = int(stream.host_offsets[-1]) // 4
-    try:
+    with plan_knobs(MAX_GROUP=2,
+                    SCRATCH_CELLS=int(stream.host_offsets[-1]) // 4):
         for mode in range(4):
             before = kernels.LAUNCHES["ragged_dp_flags"]
             one(profile, stream, mode, 1, 3, 1)
             check(kernels.LAUNCHES["ragged_dp_flags"] - before > 1,
                   "flag wave case ran in one launch")
-    finally:
-        kernels.WAVE_CELLS = wave_cells
     res = {"phase": "kernel", "kernel": "ragged_dp_flags", "cases": n_cases,
            "mismatches": mismatches, "max_abs_err": max_err, "tolerance": 0,
            "precisions_reached": {m: sorted(v) for m, v in reached.items()},
@@ -514,6 +558,148 @@ def phase_kernel_flags(matrix, dev):
     check(all(v == {8, 16, 32} for v in reached.values()),
           f"flag cases do not reach 8, 16 and 32 bits in every mode: "
           f"{res['precisions_reached']}")
+    return res
+
+
+def mixed_stream(rng, n_blocks, B, max_len, A, device):
+    """Blocks whose lanes have unsorted lengths 0..max_len, a fifth of them
+    empty: one warp holds lanes of every length."""
+    from opal_tpu_torch.engine import kernels
+
+    letters, lengths = [], []
+    for _ in range(n_blocks):
+        lens = rng.integers(0, max_len + 1, size=B)
+        lens[rng.random(B) < 0.2] = 0
+        letters.append(rng.integers(0, A, size=(max(1, int(lens.max())),
+                                                B)).astype(np.int8))
+        lengths.append(lens.astype(np.int32))
+    return kernels.pack_stream(letters, lengths, B, device)
+
+
+def planted(rng, Q, n, A=12):
+    """(query, database, matrix): two 6-letter motifs repeated in the query
+    at rows 3, 21, 37 and 53 (strips 0-3) and at its end, and targets that
+    hold them in crossed order and end with one, so SW ends tie across
+    strips of different threads (some reached at an earlier column by a
+    later strip) and OV's last-column maxima tie with row Q-1."""
+    matrix = np.where(np.eye(A, dtype=bool), 5, -4).astype(np.int32)
+    query = rng.integers(0, A, size=Q)
+    x, y = rng.integers(0, A, size=6), rng.integers(0, A, size=6)
+    for at, m in ((3, x), (21, y), (37, x), (53, y), (Q - 6, x)):
+        if 0 <= at and at + 6 <= Q:
+            query[at:at + 6] = m
+    db = []
+    for i in range(n):
+        t = rng.integers(0, A, size=int(rng.integers(0, 90)))
+        if len(t) >= 30 and i % 3:
+            a, b = (y, x) if i % 2 else (x, y)
+            t[4:10], t[len(t) - 6:] = a, b
+        db.append(t.astype(np.uint8))
+    return query, db, matrix
+
+
+def phase_kernel_mapping(matrix, dev):
+    """The strip-group mapping against the plain versions on random
+    streams (see the module docstring, phase 4b)."""
+    import torch
+
+    from opal_tpu_torch.engine import batching, kernels
+
+    rng = np.random.default_rng(2029)
+    A = matrix.shape[0]
+    t0 = time.perf_counter()
+    n_cases = mismatches = max_err = 0
+    groups_seen = set()
+
+    def tally(name, bad, err, **case):
+        nonlocal n_cases, mismatches, max_err
+        n_cases += 1
+        mismatches += bad
+        max_err = max(max_err, err)
+        if bad:
+            emit({"phase": "kernel_mapping", "mismatch": dict(
+                case=name, entries=bad, **case)})
+
+    def prof(q, m=matrix):
+        return torch.from_numpy(kernels.build_profile(
+            m[np.asarray(q, np.int64)].T)).to(dev)
+
+    def packed(db, B):
+        blocks = batching.plan_blocks(db, B)
+        return kernels.pack_stream([b.letters for b in blocks],
+                                   [b.lengths for b in blocks], B, dev)
+
+    # lanes of mixed lengths and empty lanes in one warp; queries at the
+    # strip and group edges; every G; passes past the first
+    k = 0
+    for Q in (1, 15, 16, 17, 127, 128, 129, 1000):
+        stream = mixed_stream(rng, 3, 72, 90 if Q == 1000 else 300, A, dev)
+        profile = prof(rng.integers(0, A, size=Q))
+        for max_group in (1, 2, 4, 8):
+            with plan_knobs(MAX_GROUP=max_group):
+                groups_seen |= set(kernels.plan_for(
+                    stream, -(-Q // 16)).groups.tolist())
+                for mode, flags in ((k % 4, False), (k % 4, True)):
+                    bad, err = compare(profile, stream, mode, 1, 3, 1,
+                                       with_flags=flags)
+                    tally("mixed_lanes", bad, err, Q=Q, mode=mode,
+                          max_group=max_group, flags=flags)
+                k += 1
+    check(groups_seen == {1, 2, 4, 8}, f"G in use: {sorted(groups_seen)}")
+    # every G in one launch: short blocks G = 1, long ones larger
+    stream = random_stream(rng, 900, 1200, 64, A, dev)
+    with plan_knobs(RESIDENT_THREADS_PER_SM=8):
+        plan = kernels.plan_for(stream, 19)
+        check(set(plan.groups.tolist()) == {1, 2, 4, 8},
+              f"one launch mixes G {sorted(set(plan.groups.tolist()))}")
+        profile = prof(rng.integers(0, A, size=300))
+        for mode in range(4):
+            bad, err = compare(profile, stream, mode, 1, 3, 1)
+            tally("mixed_groups", bad, err, mode=mode)
+    # SW ends and OV last-column maxima tied across strips of different
+    # threads, the last column's max on the row-Q-1 thread
+    for max_group in (2, 4, 8):
+        query, db, m = planted(rng, 70, 300)
+        stream = packed(db, 128)
+        with plan_knobs(MAX_GROUP=max_group):
+            for mode in (3, 2):
+                bad, err = compare(prof(query, m), stream, mode, 1, 2, 1)
+                tally("ties", bad, err, mode=mode, max_group=max_group)
+    # multi_dp: segments that start mid-pass at every G
+    segs = (5, 40, 16, 17, 33, 2, 64, 1)  # 1,3,1,2,3,1,4,1 strips
+    query, db, m = planted(rng, sum(segs), 300)
+    cuts = np.cumsum((0,) + segs)
+    mprof, seg_qs = multi_profile(
+        m, [query[cuts[i]:cuts[i + 1]] for i in range(len(segs))], dev)
+    stream = packed(db, 128)
+    for max_group in (1, 2, 4, 8):
+        with plan_knobs(MAX_GROUP=max_group):
+            for mode in range(4):
+                bad, err = compare(mprof, stream, mode, 1, 3, 1, seg_qs)
+                tally("multi_mid_pass", bad, err, mode=mode,
+                      max_group=max_group)
+    res = {"phase": "kernel_mapping", "cases": n_cases,
+           "mismatches": mismatches, "max_abs_err": max_err, "tolerance": 0,
+           "groups_seen": sorted(groups_seen),
+           "seconds": round(time.perf_counter() - t0, 1)}
+    emit(res)
+    check(mismatches == 0, "the strip-group mapping disagrees with the "
+          "plain versions")
+    return res
+
+
+def phase_soak(trials=120):
+    """opal_tpu_torch.tools.soak on the card: random problems through
+    ragged_dp and multi_dp against the scalar oracle."""
+    from opal_tpu_torch.tools import soak
+
+    res = soak.run(trials=trials, seed=6, device="cuda")
+    res["phase"] = "soak"
+    emit(res)
+    check(res["failures"] == 0, f"soak: {res.get('first_failure')}")
+    check(res["launches"]["ragged_dp"] > 0 and res["launches"]["multi_dp"] > 0
+          and sum(res["plain_calls"].values()) == 0,
+          f"soak did not run both kernels alone: {res['launches']}")
     return res
 
 
@@ -557,9 +743,7 @@ def phase_kernel_multi(matrix, dev):
     profile, seg_qs = multi_profile(
         matrix, [rng.integers(0, A, size=q) for q in mixed], dev)
     stream = random_stream(rng, 1500, 600, 128, A, dev)
-    wave_cells = kernels.WAVE_CELLS
-    kernels.WAVE_CELLS = int(stream.host_offsets[-1]) // 4
-    try:
+    with plan_knobs(SCRATCH_CELLS=int(stream.host_offsets[-1]) // 4):
         for mode in range(4):
             before = kernels.LAUNCHES["multi_dp"]
             bad, err = compare(profile, stream, mode, 1, 3, 1, seg_qs)
@@ -568,8 +752,6 @@ def phase_kernel_multi(matrix, dev):
             n_cases += 1
             mismatches += bad
             max_err = max(max_err, err)
-    finally:
-        kernels.WAVE_CELLS = wave_cells
     res = {"phase": "kernel", "kernel": "multi_dp", "cases": n_cases,
            "mismatches": mismatches, "max_abs_err": max_err, "tolerance": 0,
            "seconds": round(time.perf_counter() - t0, 1)}
@@ -686,6 +868,16 @@ def time_cuda(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def launch_split(fn):
+    """Kernel ms of each launch of one fn(events) call (CUDA events)."""
+    import torch
+
+    events = []
+    fn(events)
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for *_, a, b in events]
+
+
 def full_scale_server(sm):
     """The serving path's Server over 541,762 synthetic sequences (seed
     12071) held resident on the card, the sequences as ASCII letters, and
@@ -760,6 +952,9 @@ def phase_main(sm, engine, ddb, setup_s, smi):
         sm.matrix[query.astype(np.int64)].T, 3, 1)
     kernel_ms = time_cuda(lambda: kernels.ragged_score(
         profile, ddb.stream, MODE_SW, SEARCH_SCORE, 3, 1), 5)
+    plan = kernels.plan_for(ddb.stream, -(-Q // kernels.STRIP_ROWS))
+    split = launch_split(lambda ev: kernels.ragged_score(
+        profile, ddb.stream, MODE_SW, SEARCH_SCORE, 3, 1, events=ev))
     sel = sorted(set(range(0, len(ddb.blocks), 24)) | {len(ddb.blocks) - 1})
     sub_stream = kernels.pack_stream(
         [ddb.blocks[b].letters for b in sel],
@@ -796,6 +991,8 @@ def phase_main(sm, engine, ddb, setup_s, smi):
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "ops_ms": ops_ms, "bytes_ms": bytes_ms, "sm_count": n_sm,
         "max_sm_mhz": max_mhz,
+        "launch_ms": split, "groups": plan_groups_summary(plan, ddb),
+        "scratch_cells": plan.scratch_cells,
         "blocks": len(ddb.blocks), "sub_blocks": len(sel), "sub_cells": sub_cells,
         "sub_kernel_ms": sub_kernel_ms, "sub_plain_ms": plain_ms,
         "sub_cases": 8, "sub_mismatches": bad, "max_abs_err": err,
@@ -928,6 +1125,11 @@ def phase_serve(srv, smi):
     profile, seg_qs = multi_profile(matrix, group, ddb.device)
     multi_ms = time_cuda(lambda: kernels.multi_score(
         profile, seg_qs, ddb.stream, MODE_SW, SEARCH_SCORE, 3, 1), 3)
+    multi_split = launch_split(lambda ev: kernels.multi_score(
+        profile, seg_qs, ddb.stream, MODE_SW, SEARCH_SCORE, 3, 1,
+        events=ev))
+    multi_plan = kernels.plan_for(ddb.stream,
+                                  profile.shape[0] // kernels.STRIP_ROWS)
     singles = [engine._backend.prepare_query(matrix[q.astype(np.int64)].T,
                                              3, 1) for q in group]
     ragged_sum_ms = sum(time_cuda(lambda p=p: kernels.ragged_score(
@@ -991,7 +1193,8 @@ def phase_serve(srv, smi):
         "group_segments": list(seg_qs), "group_cells": cells,
         "request_multi_dp_ms": request_kernel_ms,
         "topk_one_group_s": min(topk_s),
-        "multi_dp_group_ms": multi_ms,
+        "multi_dp_group_ms": multi_ms, "multi_dp_launch_ms": multi_split,
+        "multi_dp_groups": plan_groups_summary(multi_plan, ddb),
         "ragged_dp_sum_ms": ragged_sum_ms,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -1039,7 +1242,9 @@ def phase_cascade(sm, engine, ddb, smi):
     profile = engine._backend.prepare_query(
         sm.matrix[query.astype(np.int64)].T, 3, 1)
     res = {"phase": "cascade", "sequences": ddb.n, "residues": total,
-           "query": "O74807", "Q": Q, "card": smi, "modes": {}}
+           "query": "O74807", "Q": Q, "card": smi, "modes": {},
+           "groups": plan_groups_summary(kernels.plan_for(
+               ddb.stream, -(-Q // kernels.STRIP_ROWS)), ddb)}
     launches = 0
     for name, mode, x, reps in (("SW", MODE_SW, 0, 3), ("NW", MODE_NW, 1, 1)):
         search_database(query, ddb, 3, 1, sm.matrix, mode=mode,
@@ -1106,6 +1311,8 @@ def phase_cascade(sm, engine, ddb, smi):
             "rerun_stage8": int(stats["rerun_mask_stage8"].sum()),
             "rerun_stage16": int(stats["rerun_mask_stage16"].sum()),
             "flag_kernel_ms": flag_ms, "no_flag_kernel_ms": plain_kernel_ms,
+            "flag_launch_ms": launch_split(lambda ev: kernels.ragged_score(
+                profile, ddb.stream, mode, x, 3, 1, True, events=ev)),
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "max_per_cell": FLAG_CELL_MAXES[name]}
@@ -1379,9 +1586,7 @@ def phase_kernel_panels(matrix, dev):
     profile = torch.from_numpy(kernels.build_profile(
         matrix[rng.integers(0, A, size=110)].T)).to(dev)
     stream = random_stream(rng, 2000, 1500, 128, A, dev)
-    wave_cells = kernels.WAVE_CELLS
-    kernels.WAVE_CELLS = int(stream.host_offsets[-1]) // 4
-    try:
+    with plan_knobs(SCRATCH_CELLS=int(stream.host_offsets[-1]) // 4):
         for mode in range(4):
             for flags in (False, True):
                 before = kernels.LAUNCHES["ragged_dp_panel"]
@@ -1392,8 +1597,6 @@ def phase_kernel_panels(matrix, dev):
                 n_cases += 1
                 mismatches += bad
                 max_err = max(max_err, err)
-    finally:
-        kernels.WAVE_CELLS = wave_cells
     res = {"phase": "kernel_panels", "kernel": "ragged_dp_panel",
            "cases": n_cases, "mismatches": mismatches,
            "max_abs_err": max_err, "tolerance": 0,
@@ -1522,13 +1725,16 @@ def phase_long_query(sm, srv, smi):
     total = ddb.total_residues
     query, _ = long_query(sm, 100_000, 100_000)
     Q = len(query)
-    waves = kernels.plan_waves(ddb.stream.host_offsets)
-    wave_residues = [int(sum(int(ddb.blocks[b].lengths.sum())
-                             for b in range(f, f + n))) for f, n in waves]
     default_rows = kernels.PANEL_ROWS
+    plan = kernels.plan_for(ddb.stream, default_rows // kernels.STRIP_ROWS,
+                            True)
+    waves = plan.waves
+    wave_residues = [int(sum(int(ddb.blocks[b].lengths.sum()) for b in w))
+                     for w in waves]
     res = {"phase": "long_query", "sequences": ddb.n, "residues": total,
            "Q": Q, "seed": 100_000, "panel_rows": default_rows,
-           "waves": len(waves), "card": smi}
+           "waves": len(waves), "groups": plan_groups_summary(plan, ddb),
+           "scratch_cells": plan.scratch_cells, "card": smi}
 
     def search(q, rows, mode=MODE_SW, x=SEARCH_SCORE):
         """(seconds, columns, per-launch CUDA events) of one
@@ -1588,14 +1794,15 @@ def phase_long_query(sm, srv, smi):
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "kernel_share_of_bound": max(ops_ms, bytes_ms) / kms,
-        "per_wave": [{"blocks": n, "residues": r, "ms": m,
+        "per_wave": [{"blocks": len(blocks), "residues": r, "ms": m,
                       "gcups": Q * r / m / 1e6,
                       "launch_ms_min": min(x for w2, x in launch_ms
                                            if w2 == w),
                       "launch_ms_max": max(x for w2, x in launch_ms
                                            if w2 == w)}
-                     for w, ((f, n), r, m) in enumerate(
-                         zip(waves, wave_residues, per_wave))]})
+                     for w, (blocks, r, m) in enumerate(
+                         zip(waves, wave_residues, per_wave))],
+        "launch_ms": [x for _, x in launch_ms]})
     emit({"phase": "long_query", "timed": {k: res[k] for k in (
         "search_s", "gcups", "launches", "kernel_ms", "bound_ms")}})
 
@@ -1763,6 +1970,8 @@ def main():
     kern = phase_kernel(sm.matrix, dev)
     kern_flags = phase_kernel_flags(sm.matrix, dev)
     kern_multi = phase_kernel_multi(sm.matrix, dev)
+    kern_map = phase_kernel_mapping(sm.matrix, dev)
+    soak_res = phase_soak()
     phase_goldens(sm, Engine(device="cuda", block_size=1024))
     srv, ascii_db, setup_s = full_scale_server(sm)
     main_res = phase_main(sm, srv.engine, srv.ddb, setup_s, smi)
@@ -1780,9 +1989,14 @@ def main():
         "replaces": "opal_tpu/engine/pallas_kernels.py:825:"
                     "build_pallas_ragged_fn_raw",
         "launches": main_res["launches"],
-        "checked_cases": kern["cases"] + main_res["sub_cases"],
-        "mismatches": kern["mismatches"] + main_res["sub_mismatches"],
-        "max_abs_err": max(kern["max_abs_err"], main_res["max_abs_err"]),
+        "checked_cases": kern["cases"] + main_res["sub_cases"]
+        + kern_map["cases"],
+        "mismatches": kern["mismatches"] + main_res["sub_mismatches"]
+        + kern_map["mismatches"],
+        "max_abs_err": max(kern["max_abs_err"], main_res["max_abs_err"],
+                           kern_map["max_abs_err"]),
+        "soak_trials": soak_res["trials"],
+        "soak_failures": soak_res["failures"],
         "ms": main_res["kernel_ms"],
         "plain_ms": main_res["sub_plain_ms"],
         "plain_at": f"{main_res['sub_blocks']} of the main path's "

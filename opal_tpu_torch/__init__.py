@@ -33,4 +33,8 @@ def __getattr__(name):
         from .engine import search as _s
 
         return getattr(_s, name)
+    if name == "search_database_char_sw":
+        from .engine import cascade as _c
+
+        return _c.search_database_char_sw
     raise AttributeError(name)

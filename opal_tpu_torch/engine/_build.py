@@ -5,8 +5,8 @@ use, into `_build/lib<name>-<hash>.so` beside this file (the directory is
 git-ignored). `csrc` is this package's `csrc/` (ragged_dp, multi_dp) unless
 a caller names another source directory (opal_tpu_torch/tools/csrc holds
 the probes); names are unique across the directories. The hash covers the
-source and the flags, so an edited source builds anew and an unchanged one
-loads what is there.
+source, the headers (`*.cuh`) of its directory and the flags, so an edited
+source or header builds anew and an unchanged one loads what is there.
 """
 from __future__ import annotations
 
@@ -42,7 +42,8 @@ def nvcc() -> str:
 
 
 def _target(name: str, csrc: Path = CSRC) -> Path:
-    src = (Path(csrc) / f"{name}.cu").read_bytes()
+    src = (Path(csrc) / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(Path(csrc).glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

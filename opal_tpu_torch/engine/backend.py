@@ -3,7 +3,8 @@
 It takes the places of opal_tpu's PallasBackend (on the card: the ragged_dp
 kernel for one query, in query panels when it is taller than
 kernels.PANEL_ROWS, the multi_dp kernel for a stacked group, one launch
-per wave of blocks and panel) and XlaBackend (on the CPU: the plain
+over the whole database per query, panel or group, as kernels.plan_launch
+lays it out) and XlaBackend (on the CPU: the plain
 versions) with one protocol: prepare_query -> dispatch_many ->
 collect_many for one query, supports_multi -> dispatch_multi ->
 collect_multi for a group. Which one runs follows from the device the
@@ -19,8 +20,23 @@ import torch
 from ..constants import SEARCH_SCORE
 from . import kernels
 
-# |DP values| must stay clear of the int32 -inf sentinel (NEG = -2^30)
-VALUE_BOUND = 2**29
+# What ragged_dp, multi_dp and their plain versions keep exact in int32.
+# Let M = max |matrix entry|, Q the query's rows, T the longest target.
+# - Upwards: a cell's H is the best path to it, at most Q * M; the diagonal
+#   candidate H[r-1] + P likewise. The plain versions' F prefix adds its
+#   ramp (row * ge) on top. So Q * (M + ge) < 2^31 (UPPER_BOUND).
+# - Downwards: H is at least the gap-only path to its cell, -2 go - (Q + T)
+#   ge, in every mode; E and F are at most go below H. E and F start at the
+#   sentinel NEG = -2^30 and fall from it by ge once (NEG - ge) before the
+#   first real H - go replaces them. Real values stay above that fall when
+#   3 go + (Q + T + 1) ge < 2^30 (LOWER_BOUND = -NEG); the NW walls
+#   (-go - r ge, -go - t ge) are gap-only paths and lie inside too.
+# - The diagonal candidate reaches H - M on a real row and H + PAD_NEG
+#   (-2^20) on a padding row: with H above -2^30 it stays above -2^31 when
+#   M < 2^30 (LOWER_BOUND again).
+# Scores may therefore exceed 2^30 upwards, never reach -2^30 downwards.
+UPPER_BOUND = 2**31
+LOWER_BOUND = 2**30
 
 
 @dataclasses.dataclass
@@ -50,12 +66,15 @@ class RaggedBackend:
     def supports(self, Q: int, gap_open: int, gap_ext: int, A: int,
                  profile_absmax: int = 0, max_len: int = 0) -> bool:
         """Can the kernel take this search exactly? Any query length, any
-        gap pair; int8 letters, and DP values well inside int32."""
+        gap pair; int8 letters, and DP values inside the int32 range the
+        kernels keep exact (UPPER_BOUND, LOWER_BOUND)."""
+        go, ge, M = abs(gap_open), abs(gap_ext), abs(profile_absmax)
         return (
             Q >= 1
             and A <= kernels.MAX_ALPHABET
-            and Q * profile_absmax + 2 * abs(gap_open)
-            + (Q + max_len) * abs(gap_ext) < VALUE_BOUND
+            and Q * (M + ge) < UPPER_BOUND
+            and 3 * go + (Q + max_len + 1) * ge < LOWER_BOUND
+            and M < LOWER_BOUND
         )
 
     def supports_multi(self, queries, gap_open, gap_ext, A, matrix,

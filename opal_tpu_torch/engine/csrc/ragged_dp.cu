@@ -9,29 +9,54 @@
 // gap_ext > gap_open and gap_open == gap_ext == 0 run here too), no query
 // length ceiling.
 //
-// Design. One thread per database lane; a CUDA block holds THREADS lanes of
-// one database block (grid.y = database block). Each thread walks its own
-// columns t < len only. The query is cut into strips of R rows: a strip's
-// H and E columns live in registers while the thread sweeps all its columns;
-// the strip's last row (H and F per column) passes to the next strip
-// through a lane-contiguous int2 scratch [t, lane] in device memory. The
-// strip's profile rows (R x W int32) are staged in shared memory with an
-// odd row stride, so lanes holding different letters hit different banks.
-// Letters are read four columns per 32-bit load.
+// What bounds it on the H100: integer issue along a serial chain. The least
+// an SW score-only cell needs is 3.5 max-type instructions (Hopper's DPX
+// forms), which only the ALU pipe issues, 64 per SM per clock; nvcc
+// already compiles the plain max/+ source below into them (3.73 per cell,
+// measured from the SASS by opal_tpu_torch/tools/exp_unroll). Bytes are
+// negligible: letters are ~0.2 GB per whole-database search. On a full
+// grid the body runs at ~41 % of that ceiling, held by the latency of each
+// column's 16-row chain; what it loses beyond that is the fill: a lane is
+// a serial chain of ceil(Q / R) strips x len columns, the longest lanes
+// decide when a launch ends, and a launch of few CUDA blocks leaves SMs
+// idle.
 //
-// What bounds it on the H100: integer issue. The least an SW score-only
-// cell needs is 5.5 int32 instructions with Hopper's DPX forms: 2 adds
-// (h - go, shared by the next column's E and the next row's F; diag +
-// profile), 3 DPX (E = __viaddmax_s32(E, -ge, h - go), F likewise, H =
-// __vimax3_s32_relu(E, F, diag + profile)) and half a __vimax3_s32 for the
-// score tracker (two cells per instruction). The adds can issue on the FMA
-// pipe; the 3.5 max-type ones only on the ALU pipe, 64 lanes per SM, which
-// makes 3.5 / 64 SM-clocks per cell (all 5.5 at the schedulers' 128 per SM
-// per clock take less). This kernel, without DPX, does 11 per cell (E: 2
-// adds + max, F: 2 adds + max, diagonal add, H: 2 max, SW clamp, score
-// tracker), 7 of them max-type. Bytes are negligible: letters are ~0.2 GB
-// per whole-database search (read once per strip), scratch traffic 16 / R
-// bytes per cell.
+// Design: strip groups (strip_group.cuh). The query is cut into strips of
+// R = 16 rows; a strip's H and E columns live in registers. The strips of
+// one lane go to a group of G threads of one warp (G = 1, 2, 4 or 8):
+// thread g owns strips g, g + G, ..., and a pass of the group sweeps G
+// strips as a wavefront along the columns. At step k thread g computes
+// column k - g of its strip and takes the row above (H, F at that column)
+// from thread g - 1 with __shfl_up_sync; thread 0 takes the mode's wall at
+// row 0, else the last row the previous pass (or panel) left in a
+// lane-contiguous int2 scratch [t, lane]. A lane's chain drops from
+// ceil(Q / R) x len columns to ceil(Q / (R G)) x (len + G - 1) steps; G - 1
+// steps of lag per pass are the price. Every warp steps to its longest
+// lane (lanes of a block are length-sorted, so neighbours are alike);
+// shorter, empty and absent lanes mask their cells but still shuffle.
+// - G per database block is the host plan's (kernels.plan_launch), from
+//   the block's longest lane: the smallest G that puts a query of up to
+//   8 strips in one pass (Q <= 128: no scratch, no hand-off through device
+//   memory at all), and for taller queries the smallest G whose longest
+//   chain fits the launch's per-thread share of the work.
+// - Launch: every database block in one grid, as CUDA blocks of THREADS
+//   threads (THREADS / G lanes each), listed longest block first by the
+//   plan (Job): the longest chains start at once and short blocks fill the
+//   SMs behind them. Scratch exists only for blocks that hand rows between
+//   passes or panels; the plan splits the database into several launches
+//   only where that scratch would not fit its budget.
+// - The profile: a pass's G strips (G x R rows x W letters, 17.4 KB at
+//   G = 8, W = 32) in dynamic shared memory with an odd row stride, staged
+//   once per pass by the whole CUDA block.
+// - Letters: each thread loads its lane's 32-bit word (four columns) when
+//   its column reaches a multiple of four; the G threads of a lane read the
+//   same word a step apart, from L1.
+// - The group's trackers merge after each pass in strip order, through
+//   shuffles, with the one-thread rules: SW keeps the earlier strip's end
+//   unless a later strip reached the value in an earlier column (smallest
+//   end_t, then smallest end_q); OV's last-column max keeps the earlier
+//   strip on ties; the last-row trackers (HW, OV, NW) come from the thread
+//   that owns row Q-1. Thread 0 of the group writes the lane's rows.
 //
 // Overflow flags (FLAGS, K4). Also replaces the with_flags branch of
 // _kernel_body (pallas_kernels.py:525-549, rows :199-202), with the int32
@@ -44,10 +69,8 @@
 // mask the padding rows of the last strip: below row Q-1 F can fall by ge
 // per row and E follows the padded H, to values no real cell holds.
 // Columns at or past a lane's length are never walked, so the column mask
-// is structural. The least extra work is 0.5 max-type instruction per SW
-// cell (one __vimax3_s32 folds two cells) and 1.5 per NW/HW/OV cell (min E,
-// min F, max H, two cells per 3-input instruction); with FLAGS false the
-// kernel is the code it was without them.
+// is structural. Each thread keeps the flags of its strips; the group
+// reduces them at the end (min and max: order-free).
 //
 // Query panels (PANEL, K6). Also replaces opal_tpu's query-panel kernel
 // build_pallas_panel_fn_raw (pallas_kernels.py:959-1082, boundary rows
@@ -59,194 +82,97 @@
 // go, F[t] - ge) of the row above). The panel that holds row Q-1 (final)
 // alone keeps the last-row trackers. Each panel emits its own rows, as
 // kernels.panel_tracker_rows lists them, with end rows local to the panel;
-// kernels.finalize_panels_device merges them on the card. Panels of one
-// wave run in order on one stream and share the wave's scratch. With PANEL
-// false the kernel is the code it was without it (row0 = 0, one panel).
-//
-// Left for later: DPX instructions (__viaddmax_s32, __vimax3_s32) to fuse
-// add+max and max3; the profile held in registers instead of shared memory;
-// query tiling across the warps of a block (inter-thread wavefront) instead
-// of one lane per thread; packed 16-bit lanes where scores fit.
+// kernels.finalize_panels_device merges them on the card. The panels of a
+// launch plan run in order on one stream over the same blocks and share
+// their scratch. With PANEL false the kernel is the code it was without it
+// (row0 = 0, one panel).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "strip_group.cuh"
 
 namespace {
 
-constexpr int R = 16;          // query rows per strip (== STRIP_ROWS)
-constexpr int RS = R + 1;      // shared-memory stride per letter (odd)
-constexpr int THREADS = 128;   // lanes per CUDA block
-constexpr int MAX_W = 128;     // profile width bound (int8 letters)
-constexpr int NEG = -(1 << 30);
-constexpr int PAD_NEG = -(1 << 20);
-
-enum { MODE_NW = 0, MODE_HW = 1, MODE_OV = 2, MODE_SW = 3 };
+using namespace sg;
 
 struct Args {
   const int* profile;         // [Q, W] int32
   const int8_t* letters;      // blocks back to back, [t4, B, 4] each
   const long long* offsets;   // [NB + 1] byte offset of each block
   const int* lengths;         // [NB, B]
-  int2* scratch;              // (H, F) of a strip's last row, per cell
+  const Job* jobs;            // [grid] the plan's CUDA blocks
+  const int* groups;          // [NB] G of each block
+  const long long* scr_off;   // [NB] the block's first scratch cell, or -1
+  int2* scratch;              // (H, F) of a pass's last row, per cell
   int* out;                   // [NB, rows, B]
-  int first_block, B, Q, W, go, ge;
+  int B, Q, W, go, ge;
   int row0, rows;             // PANEL: the query rows of this launch
 };
 
 template <int MODE, bool END, bool FLAGS, bool PANEL>
 __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
-  __shared__ int sprof[MAX_W * RS];
-  constexpr bool WALL = MODE == MODE_NW || MODE == MODE_HW;
-  const int blk = a.first_block + blockIdx.y;
-  const int lane = blockIdx.x * THREADS + threadIdx.x;
+  extern __shared__ int sprof[];  // [G][W][RS]
+  const Job job = a.jobs[blockIdx.x];
+  const int blk = job.blk;
+  const int G = a.groups[blk];
+  const int g = threadIdx.x & (G - 1);
+  const int lane = job.lane0 + threadIdx.x / G;
   const int B = a.B, Q = a.Q, W = a.W, go = a.go, ge = a.ge;
-  const int len = lane < B ? a.lengths[(long long)blk * B + lane] : 0;
-  const long long boff = a.offsets[blk];
+  const int len = lane < B ? a.lengths[(size_t)blk * B + lane] : 0;
+  const int wlen = __reduce_max_sync(FULL, len);
+  const int steps = wlen > 0 ? wlen + G - 1 : 0;
   const uint32_t* lw =
-      reinterpret_cast<const uint32_t*>(a.letters + boff) + lane;
-  int2* scr = a.scratch == nullptr
-                  ? nullptr
-                  : a.scratch + (boff - a.offsets[a.first_block]) + lane;
+      reinterpret_cast<const uint32_t*>(a.letters + a.offsets[blk]) + lane;
+  const long long so = a.scr_off[blk];
+  int2* scr = so < 0 ? nullptr : a.scratch + so + lane;
   // without PANEL one launch covers every row: row0 = 0, final
   const int row0 = PANEL ? a.row0 : 0;
   const bool is_final = PANEL ? row0 + a.rows == Q : true;
   const int ns = ((PANEL ? a.rows : Q) + R - 1) / R;
+  const int passes = (ns + G - 1) / G;
 
-  // lane trackers (rows are global; a panel emits them local)
+  // the group's trackers (rows are global; a panel emits them local),
+  // the same in every thread of the group after each merge
   int best = 0, best_r = row0, best_c = 0;  // SW
   int lr = NEG, lr_c = 0, plrm = NEG;       // HW / OV last row
   int ocm = NEG, orow = row0;               // OV last column
-  int nw = NEG;                          // NW
-  // overflow flags: SW max ulH+P | min E, min F, max H
-  int fl_ulhp = NEG, fl_mine = 0, fl_minf = 0, fl_maxh = NEG;
+  int nw = NEG;                             // NW
+  // overflow flags of this thread's strips
+  Flags fl{NEG, 0, 0, NEG};
 
-  for (int s = 0; s < ns; ++s) {
+  for (int p = 0; p < passes; ++p) {
+    stage_profile(sprof, a.profile, row0 + p * G * R, Q, G, W);
+    const int s = p * G + g;  // this thread's strip
+    const bool mine = s < ns;
     const int r0 = row0 + s * R;  // global row of the strip's row 0
     const bool last = is_final && s == ns - 1;  // the strip holding row Q-1
     const int jl = Q - 1 - r0;  // row Q-1 within the last strip
-    const int jv = last ? jl : R - 1;  // last real row of this strip
-    __syncthreads();
-    for (int i = threadIdx.x; i < W * R; i += THREADS) {
-      const int c = i / R, j = i - c * R;
-      // rows past Q are padding: PAD_NEG keeps their diagonal candidate
-      // out, so their H only ever repeats (never beats) real values
-      sprof[c * RS + j] = r0 + j < Q ? a.profile[(r0 + j) * W + c] : PAD_NEG;
-    }
-    __syncthreads();
-    if (len == 0) continue;
+    // the last row goes on to the next pass, or to the next panel
+    const bool put = mine && ((g == G - 1 && s + 1 < ns) ||
+                              (PANEL && !is_final && s == ns - 1));
+    const int src = g > 0 ? SRC_SHUFFLE : r0 > 0 ? SRC_SCRATCH : SRC_WALL;
+    const StripOut o = sweep<MODE, END, FLAGS>(
+        sprof + g * W * RS, lw, scr, B, len, steps, G, g, mine, src, put,
+        last, r0, jl, last ? jl : R - 1, go, ge, fl);
 
-    int H[R], E[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      H[j] = WALL ? -go - (r0 + j) * ge : 0;  // H[r][-1]
-      E[j] = MODE == MODE_SW ? 0 : NEG;       // E[r][-1]
+    // merge this pass's strips in strip order
+    for (int g2 = 0; g2 < G && p * G + g2 < ns; ++g2) {
+      merge_strip<MODE, END>(o, g2, G, best, best_r, best_c, ocm, orow);
+      if (is_final && p * G + g2 == ns - 1)  // the strip of row Q-1
+        last_row<MODE>(o, g2, G, lr, lr_c, plrm, nw);
     }
-    // diagonal input of row r0 at column 0: H[r0-1][-1]
-    int ul = ((PANEL ? r0 > 0 : s > 0) && WALL) ? -go - (r0 - 1) * ge : 0;
-    int sb = 0, st = 0, sr = 0;  // SW end tracker of this strip
-
-    for (int t4 = 0; t4 < len; t4 += 4) {
-      const uint32_t w = __ldg(lw + (size_t)(t4 >> 2) * B);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int t = t4 + k;
-        if (t >= len) break;
-        const int* pr = sprof + ((w >> (8 * k)) & 0x7f) * RS;
-        int hu, fu;  // H[r0-1][t], F[r0-1][t]
-        if (PANEL ? r0 == 0 : s == 0) {  // row -1: the mode's wall
-          hu = MODE == MODE_NW ? -go - t * ge : 0;
-          fu = MODE == MODE_SW ? 0 : NEG;
-        } else {  // the last row of the strip (or panel) above
-          const int2 b = scr[(size_t)t * B];
-          hu = b.x;
-          fu = b.y;
-        }
-        int diag = ul;
-        ul = hu;
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const int e = max(H[j] - go, E[j] - ge);
-          const int f = max(hu - go, fu - ge);
-          const int d = diag + pr[j];  // ulH + P
-          int h = max(max(e, f), d);
-          if (MODE == MODE_SW) h = max(h, 0);
-          if (FLAGS && j <= jv) {  // real rows only (see the header)
-            if (MODE == MODE_SW) {
-              fl_ulhp = max(fl_ulhp, d);
-            } else {
-              fl_mine = min(fl_mine, e);
-              fl_minf = min(fl_minf, f);
-              fl_maxh = max(fl_maxh, h);
-            }
-          }
-          diag = H[j];
-          H[j] = h;
-          E[j] = e;
-          hu = h;
-          fu = f;
-          // Padding rows need no mask here: they repeat real values at
-          // most, and only at later rows or columns, so neither the
-          // running max nor a strict first improvement can pick them.
-          if (MODE == MODE_SW) {
-            if (END) {
-              if (h > sb) {
-                sb = h;
-                st = t;
-                sr = r0 + j;
-              }
-            } else {
-              best = max(best, h);
-            }
-          }
-        }
-        if (!last) {
-          scr[(size_t)t * B] = make_int2(hu, fu);
-        } else if (MODE == MODE_HW || MODE == MODE_OV) {
-          int v = H[0];
-#pragma unroll
-          for (int j = 1; j < R; ++j)
-            if (j == jl) v = H[j];
-          plrm = lr;  // last-row max before this column
-          if (v > lr) {
-            lr = v;
-            lr_c = t;
-          }
-        }
+  }
+  if (FLAGS) {  // reduce the group's flags
+    for (int off = G / 2; off > 0; off >>= 1) {
+      if (MODE == MODE_SW) {
+        fl.ulhp = max(fl.ulhp, __shfl_xor_sync(FULL, fl.ulhp, off, G));
+      } else {
+        fl.mine = min(fl.mine, __shfl_xor_sync(FULL, fl.mine, off, G));
+        fl.minf = min(fl.minf, __shfl_xor_sync(FULL, fl.minf, off, G));
+        fl.maxh = max(fl.maxh, __shfl_xor_sync(FULL, fl.maxh, off, G));
       }
-    }
-
-    // H now holds column len-1
-    if (MODE == MODE_SW && END) {
-      // strips come in row order: on a tie, keep the earlier strip's end
-      // unless this strip reached the value in an earlier column
-      if (sb > best || (sb == best && sb > 0 && st < best_c)) {
-        best = sb;
-        best_c = st;
-        best_r = sr;
-      }
-    }
-    if (MODE == MODE_OV) {
-      int cm = NEG, cr = 0;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        if ((!last || j <= jl) && H[j] > cm) {
-          cm = H[j];
-          cr = r0 + j;
-        }
-      }
-      if (cm > ocm) {
-        ocm = cm;
-        orow = cr;
-      }
-    }
-    if (MODE == MODE_NW && last) {
-#pragma unroll
-      for (int j = 0; j < R; ++j)
-        if (j == jl) nw = H[j];
     }
   }
 
-  if (lane >= B) return;
+  if (lane >= B || g != 0) return;
   if (PANEL) {  // rows as kernels.panel_tracker_rows lists them
     const int nrows =
         (MODE == MODE_SW   ? 1 + 2 * END
@@ -286,11 +212,11 @@ __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
     }
     if (FLAGS) {
       if (MODE == MODE_SW) {
-        put(fl_ulhp);
+        put(fl.ulhp);
       } else {
-        put(fl_mine);
-        put(fl_minf);
-        put(fl_maxh);
+        put(fl.mine);
+        put(fl.minf);
+        put(fl.maxh);
       }
     }
     return;
@@ -301,11 +227,11 @@ __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
   int* o = a.out + (size_t)blk * ROWS * B + lane;
   if (FLAGS) {  // after the score rows, in opal_tpu's order
     if (MODE == MODE_SW) {
-      o[SROWS * B] = fl_ulhp;
+      o[SROWS * B] = fl.ulhp;
     } else {
-      o[SROWS * B] = fl_mine;
-      o[(SROWS + 1) * B] = fl_minf;
-      o[(SROWS + 2) * B] = fl_maxh;
+      o[SROWS * B] = fl.mine;
+      o[(SROWS + 1) * B] = fl.minf;
+      o[(SROWS + 2) * B] = fl.maxh;
     }
   }
   if (MODE == MODE_NW) {
@@ -331,87 +257,77 @@ __global__ void __launch_bounds__(THREADS) ragged_dp_kernel(Args a) {
 }
 
 template <int MODE, bool END, bool FLAGS, bool PANEL>
-void launch(const Args& a, int n_blocks, cudaStream_t stream) {
-  const dim3 grid((a.B + THREADS - 1) / THREADS, n_blocks);
-  ragged_dp_kernel<MODE, END, FLAGS, PANEL><<<grid, THREADS, 0, stream>>>(a);
+int launch(const Args& a, int n_jobs, size_t smem, cudaStream_t stream) {
+  return launch_kernel(ragged_dp_kernel<MODE, END, FLAGS, PANEL>, a, n_jobs,
+                       smem, stream);
 }
 
 // the four (END, FLAGS) instantiations of one mode
 template <int MODE, bool PANEL>
-void launch_mode(const Args& a, int n_blocks, cudaStream_t st, bool e,
-                 bool f) {
+int launch_mode(const Args& a, int n, size_t smem, cudaStream_t st, bool e,
+                bool f) {
   if (f) {
-    e ? launch<MODE, true, true, PANEL>(a, n_blocks, st)
-      : launch<MODE, false, true, PANEL>(a, n_blocks, st);
-  } else {
-    e ? launch<MODE, true, false, PANEL>(a, n_blocks, st)
-      : launch<MODE, false, false, PANEL>(a, n_blocks, st);
+    return e ? launch<MODE, true, true, PANEL>(a, n, smem, st)
+             : launch<MODE, false, true, PANEL>(a, n, smem, st);
   }
+  return e ? launch<MODE, true, false, PANEL>(a, n, smem, st)
+           : launch<MODE, false, false, PANEL>(a, n, smem, st);
 }
 
 template <bool PANEL>
-int launch_any(const Args& a, int n_blocks, void* stream, int mode,
+int launch_any(const Args& a, int n, size_t smem, void* stream, int mode,
                int track_end, int with_flags) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool e = track_end != 0, f = with_flags != 0;
+  int err;
   switch (mode) {
-    case MODE_NW: launch_mode<MODE_NW, PANEL>(a, n_blocks, st, e, f); break;
-    case MODE_HW: launch_mode<MODE_HW, PANEL>(a, n_blocks, st, e, f); break;
-    case MODE_OV: launch_mode<MODE_OV, PANEL>(a, n_blocks, st, e, f); break;
-    case MODE_SW: launch_mode<MODE_SW, PANEL>(a, n_blocks, st, e, f); break;
+    case MODE_NW: err = launch_mode<MODE_NW, PANEL>(a, n, smem, st, e, f); break;
+    case MODE_HW: err = launch_mode<MODE_HW, PANEL>(a, n, smem, st, e, f); break;
+    case MODE_OV: err = launch_mode<MODE_OV, PANEL>(a, n, smem, st, e, f); break;
+    case MODE_SW: err = launch_mode<MODE_SW, PANEL>(a, n, smem, st, e, f); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
-}
-
-bool bad_shape(int B, int Q, int W, int n_blocks, const void* scratch) {
-  return W > MAX_W || W < 1 || Q < 1 || B < 1 || n_blocks < 1 ||
-         n_blocks > 65535 || (Q > R && scratch == nullptr);
+  return err ? err : (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the kernel over blocks [first_block, first_block + n_blocks).
-// scratch holds 2 int32 per byte of those blocks' letters (may be null when
-// Q <= R). with_flags adds the overflow-flag rows after the score rows.
-// Returns cudaGetLastError() (0 on success).
-extern "C" int ragged_dp_launch(const void* profile, const void* letters,
-                                const void* offsets, const void* lengths,
-                                void* scratch, void* out, int first_block,
-                                int n_blocks, int B, int Q, int W, int mode,
-                                int track_end, int with_flags, int go, int ge,
-                                void* stream) {
-  if (bad_shape(B, Q, W, n_blocks, scratch))
-    return (int)cudaErrorInvalidValue;
-  Args a{static_cast<const int*>(profile),
-         static_cast<const int8_t*>(letters),
-         static_cast<const long long*>(offsets),
-         static_cast<const int*>(lengths),
-         static_cast<int2*>(scratch),
-         static_cast<int*>(out),
-         first_block, B, Q, W, go, ge, 0, Q};
-  return launch_any<false>(a, n_blocks, stream, mode, track_end, with_flags);
-}
-
-// The panel role: the same launch over the query rows [row0, row0 + rows)
-// of the Q-row profile. row0 is a multiple of R; a panel that does not end
-// at row Q-1 has a multiple of R rows and leaves its last row in scratch
-// for the next panel, which must run next on the same stream over the same
-// blocks. out holds the panel's rows (kernels.panel_tracker_rows).
-extern "C" int ragged_dp_panel_launch(
+// Launches the kernel over the plan's n_jobs CUDA blocks (jobs: int32
+// pairs (database block, first lane), longest block first; groups: G per
+// database block, 1, 2, 4 or 8; scr_off: each block's first int2 cell in
+// scratch, -1 for a block whose lanes hand nothing through memory). max_g
+// is the largest G among the jobs' blocks (it sizes shared memory). The
+// rows [row0, row0 + rows) of the Q-row profile are swept; with panel 0
+// they must be all of them. In the panel role (panel 1) row0 is a multiple
+// of R, a panel that does not end at row Q-1 has a multiple of R rows and
+// leaves its last row in scratch for the next panel, which must run next
+// on the same stream over the same plan; out holds the panel's rows
+// (kernels.panel_tracker_rows), else kernels.tracker_rows. with_flags adds
+// the overflow-flag rows. Returns a cudaError_t (0 on success).
+extern "C" int ragged_dp_launch(
     const void* profile, const void* letters, const void* offsets,
-    const void* lengths, void* scratch, void* out, int first_block,
-    int n_blocks, int B, int Q, int row0, int rows, int W, int mode,
-    int track_end, int with_flags, int go, int ge, void* stream) {
-  if (bad_shape(B, Q, W, n_blocks, scratch) || row0 < 0 || rows < 1 ||
-      row0 % R != 0 || row0 + rows > Q || (row0 + rows < Q && rows % R != 0))
+    const void* lengths, const void* jobs, const void* groups,
+    const void* scr_off, void* scratch, void* out, int n_jobs, int max_g,
+    int B, int Q, int row0, int rows, int W, int mode, int track_end,
+    int with_flags, int panel, int go, int ge, void* stream) {
+  if (W > MAX_W || W < 1 || Q < 1 || B < 1 || n_jobs < 1 || max_g < 1 ||
+      max_g > MAX_G || (max_g & (max_g - 1)) != 0 || row0 < 0 || rows < 1 ||
+      row0 % R != 0 || row0 + rows > Q ||
+      (row0 + rows < Q && rows % R != 0) || (!panel && (row0 || rows != Q)))
     return (int)cudaErrorInvalidValue;
   Args a{static_cast<const int*>(profile),
          static_cast<const int8_t*>(letters),
          static_cast<const long long*>(offsets),
          static_cast<const int*>(lengths),
+         static_cast<const Job*>(jobs),
+         static_cast<const int*>(groups),
+         static_cast<const long long*>(scr_off),
          static_cast<int2*>(scratch),
          static_cast<int*>(out),
-         first_block, B, Q, W, go, ge, row0, rows};
-  return launch_any<true>(a, n_blocks, stream, mode, track_end, with_flags);
+         B, Q, W, go, ge, row0, rows};
+  const size_t smem = smem_bytes(max_g, W);
+  return panel ? launch_any<true>(a, n_jobs, smem, stream, mode, track_end,
+                                  with_flags)
+               : launch_any<false>(a, n_jobs, smem, stream, mode, track_end,
+                                   with_flags);
 }

@@ -15,13 +15,17 @@ independent row segments, scored in one pass.
 
 Long queries run in query panels (`ragged_panel_score`, the panel role of
 ragged_dp): a query taller than PANEL_ROWS is cut into panels of
-PANEL_ROWS rows (`plan_panels`), each launch covers one panel over one
-wave of blocks, and a panel hands its last row to the next through the
-wave's scratch. This replaces opal_tpu's `build_pallas_panel_fn_raw`
+PANEL_ROWS rows (`plan_panels`), each launch covers one panel over the
+launch plan's blocks, and a panel hands its last row to the next through
+scratch. This replaces opal_tpu's `build_pallas_panel_fn_raw`
 (:959-1082); `finalize_panels_device` is its host merge
 `finalize_trackers_panels` (:1091-1160), here on the card. `grouped_score`
 is the counterpart of `build_pallas_score_fn_raw` (:732-821): one query
 against G dense [T, B] blocks, laid out as a stream and scored by ragged_dp.
+
+Both kernels walk a lane's query strips with a group of G threads
+(csrc/strip_group.cuh); `plan_launch` picks G per block and lays the whole
+database out as one launch, longest block first (see its docstring).
 
 `ragged_score`, `ragged_panel_score`, `multi_score` and `grouped_score` are
 the entry points: each launches its kernel for CUDA tensors and runs its
@@ -53,14 +57,19 @@ PROFILE_WIDTH = 32   # profile columns for alphabets up to 31 letters
 MAX_ALPHABET = 128   # letters are int8
 STRIP_ROWS = 16      # query rows per register strip (== R in the kernels)
 MULTI_MAX_SEGS = 8   # queries per multi_dp launch (== MAX_SEGS in multi_dp.cu)
-# Scratch cells (one int2 boundary pair per lane and column) per launch;
-# larger databases launch in waves of consecutive blocks.
-WAVE_CELLS = 32 * 1024 * 1024
-MAX_WAVE_BLOCKS = 65535  # CUDA grid.y limit
+# The launch plan (plan_launch). Scratch cells (one int2 boundary pair per
+# lane and column) one launch may use: 2 GiB; a database whose hand-offs
+# need more launches in several waves.
+SCRATCH_CELLS = 256 * 1024 * 1024
+MAX_GROUP = 8         # threads per lane group, at most (== MAX_G)
+THREADS = 128         # threads per CUDA block (== THREADS in the kernels)
+# Threads the card keeps resident per SM, for the plan's balance: 8 CUDA
+# blocks of 128 at up to 64 registers (an estimate; it sizes G only).
+RESIDENT_THREADS_PER_SM = 1024
 # Query rows per panel (a multiple of STRIP_ROWS): a query taller than this
 # runs in panels (engine/backend.py), each launch covering PANEL_ROWS rows
-# of one wave. 1,024, 4,096, 16,384 rows and one sweep ran a
-# 100,000-residue search within 0.6 % of each other on an H100 (PERF.md);
+# of the whole database. 1,024, 4,096, 16,384 rows and one sweep ran a
+# 100,000-residue search within 0.5 % of each other on an H100 (PERF.md);
 # this is the smallest of them.
 PANEL_ROWS = 1024
 
@@ -371,8 +380,8 @@ def ragged_score(profile: torch.Tensor, stream: Stream, mode: int,
 
 def _ragged_launch(profile, stream, mode, search_type, go, ge, with_flags,
                    name, events=None):
-    """ragged_dp over the whole stream, one launch per wave, counted in
-    LAUNCHES[name]."""
+    """ragged_dp over the whole stream as its launch plan lays it out, counted
+    in LAUNCHES[name]."""
     dev = stream.letters.device
     profile = profile.contiguous()
     NB, B = stream.lengths.shape
@@ -383,15 +392,16 @@ def _ragged_launch(profile, stream, mode, search_type, go, ge, with_flags,
         return out
     lib = _lib("ragged_dp")
 
-    def launch(scratch, first, n, cu_stream, _step):
+    def launch(w, scratch, cu_stream, _step):
         return lib.ragged_dp_launch(
             profile.data_ptr(), stream.letters.data_ptr(),
             stream.offsets.data_ptr(), stream.lengths.data_ptr(),
-            scratch, out.data_ptr(), first, n, B, Q, W, int(mode),
-            int(search_type != SEARCH_SCORE), int(bool(with_flags)),
-            int(go), int(ge), cu_stream)
+            *w, scratch, out.data_ptr(), w.n_jobs, w.max_g, B, Q, 0, Q, W,
+            int(mode), int(search_type != SEARCH_SCORE),
+            int(bool(with_flags)), 0, int(go), int(ge), cu_stream)
 
-    _launch_waves(name, launch, stream, Q > STRIP_ROWS, events=events)
+    _run_plan(name, launch, stream, -(-Q // STRIP_ROWS), False,
+              events=events)
     return out
 
 
@@ -403,10 +413,11 @@ def ragged_panel_score(profile: torch.Tensor, stream: Stream, mode: int,
     ((row0, rows), ...), plan_panels(Q) by default. Returns one tracker-row
     tensor [NB, len(panel_tracker_rows(.., final)), B] int32 per panel, on
     the stream's device (merge them with finalize_panels_device). On the
-    card, every wave of blocks runs the panels in order, one launch each
-    (counted in LAUNCHES["ragged_dp_panel"]), and they hand rows to each
-    other through the wave's scratch. `events`, a list, receives (wave,
-    panel, start, end) CUDA events around each launch."""
+    card, the panels run in order over the launch plan's blocks (every
+    wave of them, where its scratch forces several), one launch each
+    (counted in LAUNCHES["ragged_dp_panel"]), and hand rows to each other
+    through scratch. `events`, a list, receives (wave, panel, start, end)
+    CUDA events around each launch."""
     _check_inputs(profile, stream)
     Q = profile.shape[0]
     panels = plan_panels(Q) if panels is None else _check_panels(panels, Q)
@@ -430,17 +441,18 @@ def ragged_panel_score(profile: torch.Tensor, stream: Stream, mode: int,
         return outs
     lib = _lib("ragged_dp")
 
-    def launch(scratch, first, n, cu_stream, p):
+    def launch(w, scratch, cu_stream, p):
         row0, rows = panels[p]
-        return lib.ragged_dp_panel_launch(
+        return lib.ragged_dp_launch(
             profile.data_ptr(), stream.letters.data_ptr(),
             stream.offsets.data_ptr(), stream.lengths.data_ptr(),
-            scratch, outs[p].data_ptr(), first, n, B, Q, row0, rows, W,
-            int(mode), int(search_type != SEARCH_SCORE),
-            int(bool(with_flags)), int(go), int(ge), cu_stream)
+            *w, scratch, outs[p].data_ptr(), w.n_jobs, w.max_g, B, Q, row0,
+            rows, W, int(mode), int(search_type != SEARCH_SCORE),
+            int(bool(with_flags)), 1, int(go), int(ge), cu_stream)
 
-    _launch_waves("ragged_dp_panel", launch, stream, Q > STRIP_ROWS,
-                  len(panels), events)
+    _run_plan("ragged_dp_panel", launch, stream,
+              max(-(-n // STRIP_ROWS) for _, n in panels), len(panels) > 1,
+              len(panels), events)
     return outs
 
 
@@ -502,12 +514,14 @@ def grouped_score_plain(profile: torch.Tensor, letters: torch.Tensor,
 
 
 def multi_score(profile: torch.Tensor, seg_qs, stream: Stream, mode: int,
-                search_type: int, go: int, ge: int) -> torch.Tensor:
+                search_type: int, go: int, ge: int,
+                events=None) -> torch.Tensor:
     """Score len(seg_qs) stacked queries (profile from
     prepare_profile_multi) against every lane of the stream in one pass.
     Returns [NB, n_seg * (3 if score+end else 1), B] int32 on the stream's
     device: rows [scores | end_qs | end_ts], final values (segment s equals
-    finalize_device of ragged_score on query s alone)."""
+    finalize_device of ragged_score on query s alone). `events`, a list,
+    receives (wave, 0, start, end) CUDA events around each launch."""
     seg_qs = _check_segments(profile, seg_qs, stream)
     dev = stream.letters.device
     if dev.type == "cpu":
@@ -526,14 +540,16 @@ def multi_score(profile: torch.Tensor, seg_qs, stream: Stream, mode: int,
     lib = _lib("multi_dp")
     c_qs = (ctypes.c_int * n_seg)(*seg_qs)
 
-    def launch(scratch, first, n, cu_stream, _step):
+    def launch(w, scratch, cu_stream, _step):
         return lib.multi_dp_launch(
             profile.data_ptr(), stream.letters.data_ptr(),
             stream.offsets.data_ptr(), stream.lengths.data_ptr(),
-            scratch, out.data_ptr(), first, n, B, profile.shape[1], n_seg,
-            c_qs, int(mode), int(track_end), int(go), int(ge), cu_stream)
+            *w, scratch, out.data_ptr(), w.n_jobs, w.max_g, B,
+            profile.shape[1], n_seg, c_qs, int(mode), int(track_end),
+            int(go), int(ge), cu_stream)
 
-    _launch_waves("multi_dp", launch, stream, max(seg_qs) > STRIP_ROWS)
+    _run_plan("multi_dp", launch, stream, profile.shape[0] // STRIP_ROWS,
+              False, events=events)
     return out
 
 
@@ -549,31 +565,171 @@ def _check_segments(profile: torch.Tensor, seg_qs, stream: Stream):
     return seg_qs
 
 
-def _launch_waves(name, launch, stream: Stream, tall: bool, n_steps=1,
-                  events=None):
-    """Run launch(scratch_ptr, first_block, n_blocks, cu_stream, step) once
-    per wave of blocks and, inside each wave, for step 0 .. n_steps-1 in
-    order (the panels of a query), with one boundary scratch sized for the
-    largest wave (None when no strip hands rows to another, i.e. `tall` is
-    false). `events`, a list, receives (wave, step, start, end) CUDA
-    events around each launch."""
+@dataclasses.dataclass
+class LaunchPlan:
+    """How one kernel covers the whole stream (see plan_launch)."""
+    groups: np.ndarray       # [NB] int32, G of each block
+    waves: list              # per launch: block ids, longest block first
+    jobs: list               # per launch: [n, 2] int32 (block, first lane)
+    scratch_offsets: list    # per launch: [NB] int64 first cell, -1: none
+    scratch_cells: int       # cells of the largest launch's scratch
+
+
+def plan_groups(block_cols, B: int, n_strips: int, threads: int):
+    """G per block ([NB] int32) for a launch of n_strips strips per lane,
+    from each block's longest lane (block_cols, its padded columns; B
+    lanes per block):
+
+    - a query of up to MAX_GROUP strips runs in one pass: every block takes
+      the smallest power of two G >= n_strips (no scratch, no hand-off
+      through memory);
+    - a taller query needs several passes anyway: a block takes the
+      smallest G whose longest chain, ceil(n_strips / G) x (columns + G -
+      1) steps, fits half the launch's work per resident thread (n_strips x
+      the blocks' columns x B / `threads`); longer blocks take larger G, up
+      to MAX_GROUP, and short ones keep G = 1 (no lag)."""
+    g_top = 1
+    while g_top < min(n_strips, MAX_GROUP):
+        g_top *= 2
+    cols = np.asarray(block_cols, np.int64)
+    out = np.full(len(cols), g_top, np.int32)
+    if n_strips <= g_top:
+        return out
+    work = n_strips * int(cols.sum()) * B  # strip-columns of the launch
+    g = g_top
+    while g >= 1:  # walk down: the smallest G that fits wins
+        chain = -(-n_strips // g) * (cols + g - 1)
+        out[2 * chain * threads <= work] = g
+        g //= 2
+    return out
+
+
+def plan_launch(host_offsets: np.ndarray, B: int, n_strips: int,
+                handoff: bool, threads: int) -> LaunchPlan:
+    """The launch plan of a kernel whose lanes walk n_strips strips over
+    the stream with these block offsets (B lanes per block). `handoff`: the
+    launches hand rows on to a following launch (query panels). `threads`:
+    the threads the card keeps resident.
+
+    - G per block: plan_groups.
+    - Every block in one launch, as CUDA blocks of THREADS threads
+      (THREADS / G lanes each), the blocks ordered by their longest lane,
+      longest first, so the longest chains start at once and short blocks
+      fill the SMs behind them.
+    - Scratch ([t, lane] int2 cells, one per letter byte of the block) only
+      for blocks that hand rows on: several passes (n_strips > G) or
+      `handoff`. Where their scratch exceeds SCRATCH_CELLS, the blocks are
+      dealt round-robin, longest first, into the fewest launches (waves)
+      whose scratch fits, so each wave holds long and short blocks and
+      about the same number of CUDA blocks; a block larger than the budget
+      runs alone. The waves share one scratch of the largest wave's size."""
+    offs = np.asarray(host_offsets, np.int64)
+    NB = len(offs) - 1
+    nbytes = offs[1:] - offs[:-1]
+    cols = nbytes // max(B, 1)
+    groups = plan_groups(cols, B, n_strips, threads)
+    need = np.where(handoff | (n_strips > groups), nbytes, 0)
+    order = np.argsort(-cols, kind="stable")
+    n_w = max(1, -(-int(need.sum()) // SCRATCH_CELLS))
+    while True:
+        waves = [order[w::n_w] for w in range(n_w)]
+        if n_w >= NB or max(int(need[w].sum()) for w in waves) \
+                <= SCRATCH_CELLS:
+            break
+        n_w += 1
+    waves = [w for w in waves if len(w)]
+    jobs, scr = [], []
+    for w in waves:
+        per = [np.stack([np.full(-(-B * int(groups[b]) // THREADS), b),
+                         np.arange(0, B, THREADS // int(groups[b]))], 1)
+               for b in w]
+        jobs.append(np.concatenate(per).astype(np.int32))
+        off = np.full(NB, -1, np.int64)
+        starts = np.cumsum(need[w]) - need[w]
+        off[w] = np.where(need[w] > 0, starts, -1)
+        scr.append(off)
+    return LaunchPlan(groups=groups, waves=[tuple(int(b) for b in w)
+                                            for w in waves],
+                      jobs=jobs, scratch_offsets=scr,
+                      scratch_cells=max(int(need[w].sum()) for w in waves))
+
+
+@dataclasses.dataclass
+class _WaveArgs:
+    """One launch's plan on the device: jobs, groups, scratch offsets
+    (unpacked, in that order, into the C call), and their sizes."""
+    jobs: torch.Tensor
+    groups: torch.Tensor
+    scr_off: torch.Tensor
+    n_jobs: int
+    max_g: int
+
+    def __iter__(self):
+        return iter((self.jobs.data_ptr(), self.groups.data_ptr(),
+                     self.scr_off.data_ptr()))
+
+
+def plan_for(stream: Stream, n_strips: int,
+             handoff: bool = False) -> LaunchPlan:
+    """The plan the kernels use for this stream on its device (see
+    plan_launch): n_strips strips per lane, `handoff` for query panels."""
+    return _device_plan(stream, n_strips, handoff)[0]
+
+
+# Launch plans on their device, by stream shape and planning constants: a
+# grouped_score call builds a new Stream of the same shape every time
+_PLANS: dict = {}
+_PLANS_KEPT = 64
+
+
+def _device_plan(stream: Stream, n_strips: int, handoff: bool):
+    """(plan_launch's plan, [_WaveArgs] on the stream's device), cached by
+    the stream's block offsets, lanes and the planning constants."""
     dev = stream.letters.device
-    waves = plan_waves(stream.host_offsets)
+    threads = (torch.cuda.get_device_properties(dev).multi_processor_count
+               * RESIDENT_THREADS_PER_SM)
+    B = stream.lengths.shape[1]
+    key = (stream.host_offsets.tobytes(), B, n_strips, handoff, threads,
+           MAX_GROUP, SCRATCH_CELLS, str(dev))
+    hit = _PLANS.get(key)
+    if hit is None:
+        plan = plan_launch(stream.host_offsets, B, n_strips, handoff,
+                           threads)
+        groups = torch.from_numpy(plan.groups).to(dev)
+        hit = (plan, [_WaveArgs(
+            torch.from_numpy(j).to(dev), groups, torch.from_numpy(o).to(dev),
+            len(j), int(plan.groups[list(w)].max()))
+            for w, j, o in zip(plan.waves, plan.jobs,
+                               plan.scratch_offsets)])
+        if len(_PLANS) >= _PLANS_KEPT:
+            _PLANS.pop(next(iter(_PLANS)))
+        _PLANS[key] = hit
+    return hit
+
+
+def _run_plan(name, launch, stream: Stream, n_strips: int, handoff: bool,
+              n_steps=1, events=None):
+    """Run launch(wave_args, scratch_ptr, cu_stream, step) once per wave of
+    the stream's launch plan and, inside each wave, for step 0 .. n_steps-1
+    in order (the panels of a query), with one boundary scratch sized for
+    the largest wave (None when no block hands rows on). `events`, a list,
+    receives (wave, step, start, end) CUDA events around each launch."""
+    dev = stream.letters.device
+    plan, args = _device_plan(stream, n_strips, handoff)
     scratch = None
-    if tall:  # boundary rows pass between strips through scratch
-        cells = max(int(stream.host_offsets[f + n] - stream.host_offsets[f])
-                    for f, n in waves)
-        scratch = torch.empty(2 * cells, dtype=torch.int32, device=dev)
+    if plan.scratch_cells:
+        scratch = torch.empty(2 * plan.scratch_cells, dtype=torch.int32,
+                              device=dev)
     with torch.cuda.device(dev):
         cu_stream = torch.cuda.current_stream(dev).cuda_stream
-        for w, (first, n) in enumerate(waves):
+        for w, wa in enumerate(args):
             for step in range(n_steps):
                 if events is not None:
                     ev = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
                     ev[0].record()
-                err = launch(None if scratch is None else scratch.data_ptr(),
-                             first, n, cu_stream, step)
+                err = launch(wa, None if scratch is None
+                             else scratch.data_ptr(), cu_stream, step)
                 if err:
                     raise RuntimeError(
                         f"{name} launch failed: CUDA error {err}")
@@ -583,34 +739,16 @@ def _launch_waves(name, launch, stream: Stream, tall: bool, n_steps=1,
                     events.append((w, step) + ev)
 
 
-def plan_waves(host_offsets: np.ndarray):
-    """[(first_block, n_blocks)] of consecutive blocks whose scratch fits
-    WAVE_CELLS (a block larger than that runs alone)."""
-    NB = len(host_offsets) - 1
-    waves, first = [], 0
-    while first < NB:
-        n = 1
-        while (first + n < NB and n < MAX_WAVE_BLOCKS
-               and host_offsets[first + n + 1] - host_offsets[first]
-               <= WAVE_CELLS):
-            n += 1
-        waves.append((first, n))
-        first += n
-    return waves
-
-
 def _lib(name):
     """The built library of kernel `name`, with its C signature declared."""
     from . import _build
 
     lib = _build.load(name)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    if name == "ragged_dp":  # ..., mode, track_end, with_flags, go, ge, stream
-        sigs = {"ragged_dp_launch": [vp] * 6 + [ci] * 10 + [vp],
-                # ..., B, Q, row0, rows, W, mode, ..., stream
-                "ragged_dp_panel_launch": [vp] * 6 + [ci] * 12 + [vp]}
-    else:  # multi_dp: ..., n_seg, seg_q, mode, track_end, go, ge, stream
-        sigs = {"multi_dp_launch": [vp] * 6 + [ci] * 5
+    if name == "ragged_dp":  # 9 pointers, n_jobs .. ge, stream
+        sigs = {"ragged_dp_launch": [vp] * 9 + [ci] * 13 + [vp]}
+    else:  # multi_dp: 9 pointers, n_jobs, max_g, B, W, n_seg, seg_q, ...
+        sigs = {"multi_dp_launch": [vp] * 9 + [ci] * 5
                 + [ctypes.POINTER(ci)] + [ci] * 4 + [vp]}
     for fname, args in sigs.items():
         fn = getattr(lib, fname)

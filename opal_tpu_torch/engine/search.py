@@ -295,7 +295,7 @@ def search_database_multi_arrays(
     on the device.
 
     Queries are grouped by length (plan_groups); each group of two or more
-    runs as one stacked multi_dp pass per wave of blocks, a group of one
+    runs as one stacked multi_dp pass over the database, a group of one
     through search_database_arrays. The grouping decides launches only: each
     query's result equals its own single-query search. As in opal_tpu,
     search_type 2 and an adaptive engine do not stack: each query runs on

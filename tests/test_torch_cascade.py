@@ -218,6 +218,27 @@ def test_char_sw_matches_jax(wide_problem):
     assert sum(r.score_set == 1 for r in got) > 0
 
 
+
+def test_char_sw_through_the_package_matches_jax(wide_problem):
+    """opal_tpu_torch.search_database_char_sw resolves through the package,
+    as opal_tpu's does, to the cascade's function."""
+    import opal_tpu
+    import opal_tpu_torch
+
+    assert (opal_tpu_torch.search_database_char_sw
+            is cascade.search_database_char_sw)
+    query, db, matrix = wide_problem
+    db = db[:120]
+    got = opal_tpu_torch.search_database_char_sw(
+        query, db, 3, 1, matrix, engine=Engine(device="cpu", block_size=64))
+    want = opal_tpu.search_database_char_sw(
+        query, db, 3, 1, matrix,
+        engine=JaxEngine(backend="xla", block_size=64))
+    assert ([(r.score_set, r.score, r.end_location_query,
+              r.end_location_target) for r in got]
+            == [(r.score_set, r.score, r.end_location_query,
+                 r.end_location_target) for r in want])
+
 def test_classify_and_buckets_match_jax():
     rng = np.random.default_rng(3)
     for mode in MODES:

@@ -83,12 +83,91 @@ def test_waves_match_one_launch(cuda, monkeypatch):
         matrix[np.arange(40) % 24].T)).to(cuda)
     stream = _stream(5, 1000, 700, 64, 24, cuda)
     whole = kernels.ragged_score(profile, stream, MODE_OV, 1, 3, 1)
-    monkeypatch.setattr(kernels, "WAVE_CELLS",
+    # one lane per thread: three passes through scratch, in waves
+    monkeypatch.setattr(kernels, "MAX_GROUP", 1)
+    monkeypatch.setattr(kernels, "SCRATCH_CELLS",
                         int(stream.host_offsets[-1]) // 5)
     before = kernels.LAUNCHES["ragged_dp"]
     waves = kernels.ragged_score(profile, stream, MODE_OV, 1, 3, 1)
     assert kernels.LAUNCHES["ragged_dp"] - before >= 5
     torch.testing.assert_close(waves, whole, rtol=0, atol=0)
+
+
+def _mixed_stream(seed, n_blocks, B, max_len, A, device):
+    """Blocks whose lanes have unsorted lengths 0..max_len, a fifth of them
+    empty, so one warp holds lanes of every length."""
+    rng = np.random.default_rng(seed)
+    letters, lengths = [], []
+    for _ in range(n_blocks):
+        lens = rng.integers(0, max_len + 1, size=B)
+        lens[rng.random(B) < 0.2] = 0
+        letters.append(rng.integers(0, A, size=(max(1, int(lens.max())),
+                                                B)).astype(np.int8))
+        lengths.append(lens.astype(np.int32))
+    return kernels.pack_stream(letters, lengths, B, device)
+
+
+@pytest.mark.parametrize("max_group", [1, 2, 4, 8])
+@pytest.mark.parametrize("Q", [1, 15, 16, 17, 127, 128, 129, 1000])
+def test_strip_groups_match_plain(cuda, monkeypatch, Q, max_group):
+    """Every G (MAX_GROUP caps the plan's choice), queries at and across
+    the strip and group boundaries (passes past the first through
+    scratch), lanes of mixed lengths and empty lanes in one warp, 4 modes
+    at x1 (and SW with flags)."""
+    monkeypatch.setattr(kernels, "MAX_GROUP", max_group)
+    rng = np.random.default_rng(Q + max_group)
+    matrix = ScoreMatrix.blosum50().matrix
+    stream = _mixed_stream(Q, 3, 72, 90 if Q == 1000 else 300, 24, cuda)
+    profile = torch.from_numpy(kernels.build_profile(
+        matrix[rng.integers(0, 24, size=Q)].T)).to(cuda)
+    for mode, flags in ((0, False), (1, False), (2, False), (3, False),
+                        (3, True)):
+        got = kernels.ragged_score(profile, stream, mode, 1, 3, 1, flags)
+        want = kernels.ragged_score_plain(profile, stream, mode, 1, 3, 1,
+                                          flags)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_mixed_groups_in_one_launch_match_plain(cuda, monkeypatch):
+    """A tall query over blocks of very different lengths with a small
+    resident-thread estimate: the plan gives short blocks G = 1 and long
+    ones larger G in the same launch."""
+    monkeypatch.setattr(kernels, "RESIDENT_THREADS_PER_SM", 8)
+    matrix = ScoreMatrix.blosum50().matrix
+    stream = _stream(9, 900, 1200, 64, 24, cuda)
+    Q = 300
+    profile = torch.from_numpy(kernels.build_profile(
+        matrix[np.random.default_rng(9).integers(0, 24, size=Q)].T)).to(cuda)
+    threads = 8 * torch.cuda.get_device_properties(0).multi_processor_count
+    plan = kernels.plan_launch(stream.host_offsets, 64, -(-Q // 16), False,
+                               threads)
+    assert set(plan.groups.tolist()) == {1, 2, 4, 8}
+    for mode in range(4):
+        got = kernels.ragged_score(profile, stream, mode, 1, 3, 1)
+        want = kernels.ragged_score_plain(profile, stream, mode, 1, 3, 1)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_large_scores_on_card_match_cpu(cuda):
+    """Scores past 2^29 inside the derived int32 bound (backend.py): the
+    card equals the CPU, which equals opal_tpu (test_torch_search.py)."""
+    rng = np.random.default_rng(1)
+    query = rng.integers(0, 4, 600).astype(np.uint8)
+    db = [query, rng.integers(0, 4, 300).astype(np.uint8)]
+    for diag, off in ((2**20, -1), (2**21, -699051)):
+        matrix = np.full((4, 4), off, np.int32)
+        np.fill_diagonal(matrix, diag)
+        for mode in range(4):
+            got = search_database_arrays(query, db, 3, 1, matrix, mode=mode,
+                                         search_type=1,
+                                         engine=Engine(block_size=16))
+            want = search_database_arrays(query, db, 3, 1, matrix,
+                                          mode=mode, search_type=1,
+                                          engine=Engine(device="cpu",
+                                                        block_size=16))
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k])
+            assert int(got["score"][0]) == 600 * diag
 
 
 def test_search_on_card_matches_cpu(cuda):
@@ -149,7 +228,7 @@ def test_multi_waves_match_one_launch(cuda, monkeypatch):
                                      np.random.default_rng(3), cuda)
     stream = _stream(6, 1000, 700, 64, 24, cuda)
     whole = kernels.multi_score(profile, seg_qs, stream, MODE_OV, 1, 3, 1)
-    monkeypatch.setattr(kernels, "WAVE_CELLS",
+    monkeypatch.setattr(kernels, "SCRATCH_CELLS",
                         int(stream.host_offsets[-1]) // 5)
     before = kernels.LAUNCHES["multi_dp"]
     waves = kernels.multi_score(profile, seg_qs, stream, MODE_OV, 1, 3, 1)
@@ -280,7 +359,7 @@ def test_panel_waves_match_one_launch(cuda, monkeypatch):
         matrix[np.arange(100) % 24].T)).to(cuda)
     stream = _stream(5, 1000, 700, 64, 24, cuda)
     monkeypatch.setattr(kernels, "PANEL_ROWS", 32)
-    monkeypatch.setattr(kernels, "WAVE_CELLS",
+    monkeypatch.setattr(kernels, "SCRATCH_CELLS",
                         int(stream.host_offsets[-1]) // 5)
     for mode in range(4):
         whole = kernels.finalize_device(

@@ -231,3 +231,63 @@ def test_inputs_outside_the_kernel_raise(problem):
         search_database_arrays(query, db, 3, 2**28, matrix, engine=engine)
     with pytest.raises(ValueError):
         search_database(query, db, 3, 1, matrix, mode=7, engine=engine)
+
+
+def _large_score_problem(diag, off):
+    """A 4-letter matrix (diagonal `diag`, off-diagonal `off`), a
+    600-letter query from default_rng(1) and a database of the query itself
+    and one 300-letter sequence drawn after it."""
+    matrix = np.full((4, 4), off, np.int32)
+    np.fill_diagonal(matrix, diag)
+    rng = np.random.default_rng(1)
+    query = rng.integers(0, 4, 600).astype(np.uint8)
+    return query, [query, rng.integers(0, 4, 300).astype(np.uint8)], matrix
+
+
+# The upper edge of backend.UPPER_BOUND for Q = 600, ge = 1: Q (M + ge)
+# < 2^31 holds for M = 3,579,138 and fails for M = 3,579,139.
+_M_INSIDE = 2**31 // 600 - 1
+
+
+@pytest.mark.parametrize("diag,off", [(2**20, -1), (2**21, -699051),
+                                      (_M_INSIDE, -1)])
+@pytest.mark.parametrize("mode", MODES)
+def test_large_scores_inside_the_bound_match_jax(diag, off, mode):
+    """Scores past 2^29 (to within 1,000 of 2^31) that opal_tpu answers
+    exactly: the port equals it field by field."""
+    query, db, matrix = _large_score_problem(diag, off)
+    got = search_database_arrays(query, db, 3, 1, matrix, mode=mode,
+                                 search_type=SEARCH_SCORE_END,
+                                 engine=Engine(device="cpu", block_size=16))
+    want = jax_search_database_arrays(
+        query, db, 3, 1, matrix, mode=mode, search_type=SEARCH_SCORE_END,
+        engine=JaxEngine(backend="xla", block_size=16))
+    _assert_cols_equal(got, want)
+    assert int(got["score"][0]) == 600 * diag
+    if diag == 2**20 and mode == MODE_NW:
+        assert got["score"].tolist() == [629145600, 271580626]
+        assert got["end_q"].tolist() == [599, 599]
+        assert got["end_t"].tolist() == [599, 299]
+
+
+def test_searches_past_the_bound_raise():
+    """Just past either edge of the derived bound: the same ValueError as
+    any search outside the kernel's range; just inside the lower edge (a
+    huge gap_ext), the port equals opal_tpu."""
+    query, db, matrix = _large_score_problem(_M_INSIDE + 1, -1)
+    engine = Engine(device="cpu", block_size=16)
+    with pytest.raises(ValueError, match="outside the kernel's range"):
+        search_database_arrays(query, db, 3, 1, matrix, engine=engine)
+    query, db, matrix = _large_score_problem(5, -4)
+    # 3 go + (Q + T + 1) ge < 2^30, with Q = T = 600
+    ge_out = -(-(2**30 - 9) // 1201)
+    with pytest.raises(ValueError, match="outside the kernel's range"):
+        search_database_arrays(query, db, 3, ge_out, matrix, engine=engine)
+    got = search_database_arrays(query, db, 3, ge_out - 1, matrix,
+                                 mode=MODE_OV, search_type=SEARCH_SCORE_END,
+                                 engine=engine)
+    want = jax_search_database_arrays(
+        query, db, 3, ge_out - 1, matrix, mode=MODE_OV,
+        search_type=SEARCH_SCORE_END,
+        engine=JaxEngine(backend="xla", block_size=16))
+    _assert_cols_equal(got, want)
