@@ -77,7 +77,19 @@ the last line:
              the same search at PANEL_ROWS 1,024, 4,096, 16,384 and in one
              sweep, all equal; a 16,000-residue query in 4 modes at x1,
              panels equal to the one sweep; one served batch with that query
-             beside the 15 uniprot_sprot15 queries, equal to the API.
+             beside the 15 uniprot_sprot15 queries, equal to the API;
+14. device_fill - the alignment fill and walk of the x2 winners on the card
+             (OPAL_TPU_DEVICE_FILL=1): the device_fill kernel against its
+             plain version, exact on all five outputs, in 4 modes x 5 gap
+             pairs on planted ties, 1-letter targets and a lane that is not
+             ok, 1-lane and 512-lane groups, several groups in one call and
+             groups cut by a small byte budget; then
+             opal_tpu_torch.tools.exp_device_fill's protocol at full scale
+             (a 513-residue query, SW x1 top 1,000 on the resident database,
+             the winners aligned on the host, on the device and with the
+             audit: identical, 0 warnings; times and the host lanes by
+             reason); the kernel's ms and bound at those groups; the 6 x2
+             golden files and the served align batch with the switch.
 
 Then the kernels line and the last line {"ok": true, "device": {...}}.
 Needs CUDA, nvcc and the repository checkout around this file; imports
@@ -145,8 +157,8 @@ def op_bound_ms(cells, maxes=CELL_MAXES, adds=CELL_ADDS):
 def ptxas_summary(log):
     """{instantiation: "N registers, S spill bytes"} from ptxas's report;
     ragged_dp's instantiations read mode<M>_end<E>_flags<F> (and _panel for
-    its panel role), multi_dp's mode<M>_end<E>, a probe's
-    <name>_kernel<template arguments>."""
+    its panel role), multi_dp's mode<M>_end<E>, device_fill's
+    device_fill_mode<M>, a probe's <name>_kernel<template arguments>."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -155,7 +167,10 @@ def ptxas_summary(log):
                           m.group(1))
             name = m.group(1)
             probe = re.search(r"(peak|scan|unroll|sstack)_kernel", name)
-            if probe:  # a tools probe: its template arguments
+            fill = re.search(r"device_fill_kernelILi(\d)E", name)
+            if fill:
+                t, name = None, f"device_fill_mode{fill.group(1)}"
+            elif probe:  # a tools probe: its template arguments
                 t = None
                 name = probe.group(0) + "<" + ",".join(
                     re.findall(r"L[ib](\d+)E", name)) + ">"
@@ -783,8 +798,6 @@ def render_text(query, db, res, alphabet, base=0):
 
 
 def phase_goldens(sm, engine):
-    import glob
-
     from opal_tpu_torch import _native
     from opal_tpu_torch.constants import MODE_CODES
     from opal_tpu_torch.engine.search import search_database
@@ -819,10 +832,35 @@ def phase_goldens(sm, engine):
                 check(len(want) == len(db), f"{path}: {len(want)} lines")
                 bad_lines += sum(a != b for a, b in zip(mine, want))
                 configs += 1
-    # x2: result lines and alignment blocks, the whole file
     t1 = time.perf_counter()
+    x2_files, x2_lines, x2_bad = x2_goldens(sm, engine, ddb, db)
+    res = {"phase": "goldens", "configs": configs, "sequences": len(db),
+           "mismatching_lines": bad_lines, "x2_files": x2_files,
+           "x2_lines": x2_lines, "x2_mismatching_lines": x2_bad,
+           "x2_seconds": round(time.perf_counter() - t1, 1),
+           "native_traceback": _native.available(),
+           "seconds": round(time.perf_counter() - t0, 1)}
+    emit(res)
+    check(configs == 16 and bad_lines == 0, "golden result lines differ")
+    check(x2_files == 6 and x2_bad == 0,
+          "x2 golden lines (results or alignment blocks) differ")
+    check(_native.available(), "the native host library did not load")
+    return db, ddb
+
+
+def x2_goldens(sm, engine, ddb, db):
+    """The 6 x2 golden files of the 12,071-sequence fixture against
+    search_database(search_type=2): result lines and alignment blocks, the
+    whole file. Returns (files, lines, mismatching lines)."""
+    import glob
+
+    from opal_tpu_torch.constants import MODE_CODES
+    from opal_tpu_torch.engine.search import search_database
+    from opal_tpu_torch.fasta import read_fasta_file
+
+    lut = sm.letter_index()
     x2_files = sorted(glob.glob(os.path.join(
-        gdir, "*__synth12071__*_x2_o3_e1.txt.gz")))
+        HERE, "tests", "golden_large", "*__synth12071__*_x2_o3_e1.txt.gz")))
     x2_lines = x2_bad = 0
     for path in x2_files:
         qname, _, rest = os.path.basename(path).split("__")
@@ -839,17 +877,7 @@ def phase_goldens(sm, engine):
         x2_lines += len(want)
         x2_bad += sum(a != b for a, b in zip(mine, want)) + abs(
             len(mine) - len(want))
-    res = {"phase": "goldens", "configs": configs, "sequences": len(db),
-           "mismatching_lines": bad_lines, "x2_files": len(x2_files),
-           "x2_lines": x2_lines, "x2_mismatching_lines": x2_bad,
-           "x2_seconds": round(time.perf_counter() - t1, 1),
-           "native_traceback": _native.available(),
-           "seconds": round(time.perf_counter() - t0, 1)}
-    emit(res)
-    check(configs == 16 and bad_lines == 0, "golden result lines differ")
-    check(len(x2_files) == 6 and x2_bad == 0,
-          "x2 golden lines (results or alignment blocks) differ")
-    check(_native.available(), "the native host library did not load")
+    return len(x2_files), x2_lines, x2_bad
 
 
 def time_cuda(fn, reps):
@@ -1895,6 +1923,273 @@ def phase_long_query(sm, srv, smi):
     return res
 
 
+# The device fill's int32 work per in-band cell (csrc/device_fill.cu): E,
+# H', F, H and the column max by max (5 max-type instructions), and at
+# least 5 adds (H - go, E - ge, ul + P, H above - go, F - ge) and 5
+# compares for the decision bits (their packing not counted).
+FILL_CELL_MAXES, FILL_CELL_ADDS = 5, 10
+FILL_GAPS = ((3, 1), (5, 5), (10, 2), (1, 1), (7, 3))
+
+
+def fill_problem(n, seed, A):
+    """tests/test_device_fill.py's problem at seed 23 and n 120: a
+    90-letter query and n targets of 4-259 letters, every ninth a prefix of
+    the query (ties), target 5 its first letter."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, A - 4, size=90, dtype=np.uint8)
+    db = [rng.integers(0, A - 4, size=int(rng.integers(4, 260)),
+                       dtype=np.uint8) for _ in range(n)]
+    for i in range(0, n, 9):
+        db[i] = q[: int(rng.integers(3, 90))].copy()
+    db[5] = q[:1].copy()
+    return q, db
+
+
+def fill_diff(args, go, ge, mat, mode):
+    """(outputs that differ, max abs error, the kernel's outputs) of the
+    device_fill kernel against its plain version on one packed group, both
+    on the card."""
+    from opal_tpu_torch.engine import device_fill
+
+    got = device_fill.fill_walk(*args, go, ge, mat, mode)
+    want = device_fill.fill_walk_plain(*args, go, ge, mat, mode)
+    diffs = [int((g.long() - w.long()).abs().max()) for g, w in zip(got,
+                                                                   want)]
+    return sum(d > 0 for d in diffs), max(diffs), got
+
+
+def same_paths(a, b):
+    return set(a) == set(b) and all(
+        a[i][:2] == b[i][:2] and np.array_equal(a[i][2], b[i][2]) for i in a)
+
+
+def band_cells(qlen, bottom, top, cols):
+    """In-band cells of each lane's first `cols` columns: rows
+    max(0, c - top) .. min(qlen - 1, c + bottom) of column c."""
+    total = 0
+    for q, b, t, n in zip(qlen.tolist(), bottom.tolist(), top.tolist(),
+                          cols.tolist()):
+        c = np.arange(n)
+        total += int(np.maximum(0, np.minimum(q - 1, c + b)
+                                - np.maximum(0, c - t) + 1).sum())
+    return total
+
+
+def phase_device_fill(sm, srv, gold, ceil, smi):
+    """The device fill (OPAL_TPU_DEVICE_FILL=1): the kernel against its
+    plain version on the card; exp_device_fill's protocol at full scale;
+    the 6 x2 golden files and the served align batch with the switch."""
+    import torch
+
+    from opal_tpu_torch.constants import MODE_SW
+    from opal_tpu_torch.engine import device_fill, kernels
+    from opal_tpu_torch.engine.search import Engine, search_database_arrays
+    from opal_tpu_torch.tools import exp_device_fill
+    from opal_tpu_torch.traceback import align_pair_reverse_trick
+
+    t0 = time.perf_counter()
+    dev = srv.engine.device
+    matrix = sm.matrix
+    mat = torch.from_numpy(matrix.astype(np.int32)).to(dev)
+    small = Engine(device=dev.type, block_size=128)
+
+    def host():
+        return dict.fromkeys(("no_end", "no_band", "value_bound",
+                              "budget"), 0)
+
+    def winners_of(q, db, mode, go, ge, engine=small, top_k=0):
+        out = search_database_arrays(q, db, go, ge, matrix, mode=mode,
+                                     search_type=1, engine=engine,
+                                     top_k=top_k)
+        idx = out["index"] if top_k else range(len(out["score"]))
+        return [(int(i), int(s), int(eq), int(et)) for i, s, eq, et in
+                zip(idx, out["score"], out["end_q"], out["end_t"])
+                if not (mode == MODE_SW and s == 0)]
+
+    # (a) the kernel against its plain version: 4 modes x 5 gap pairs on
+    # planted ties and a 1-letter target, a lane whose limit is one above
+    # its score (ok False), 1-lane groups, a 512-lane group, several
+    # groups in one call, groups cut by a small byte budget
+    cases = bad = err = 0
+    q, db = fill_problem(120, 23, matrix.shape[0])
+    for mode in range(4):
+        for go, ge in FILL_GAPS:
+            jobs = device_fill.make_jobs(q, db, go, ge, matrix, mode,
+                                         winners_of(q, db, mode, go, ge),
+                                         host())
+            jobs[-1] = jobs[-1][:1] + (jobs[-1][1] + 1,) + jobs[-1][2:]
+            for group in (jobs, jobs[:1]):
+                b, e, got = fill_diff(device_fill.pack_group(group, dev), go,
+                                      ge, mat, mode)
+                bad, err, cases = bad + b, max(err, e), cases + 1
+                check(len(group) == 1 or not bool(got[3][-1]),
+                      "device_fill: the planted lane is ok")
+    q2, db2 = fill_problem(700, 24, matrix.shape[0])
+    win2 = winners_of(q2, db2, MODE_SW, 3, 1)
+    groups = device_fill.plan_groups(
+        device_fill.make_jobs(q2, db2, 3, 1, matrix, MODE_SW, win2, host()),
+        512, device_fill.FILL_BUDGET_BYTES, host())
+    check(len(groups[0]) == 512, "no 512-lane group")
+    b, e, _ = fill_diff(device_fill.pack_group(groups[0], dev), 3, 1, mat,
+                        MODE_SW)
+    bad, err, cases = bad + b, max(err, e), cases + 1
+    whole = device_fill.align_winners_device(q2, db2, 3, 1, matrix, MODE_SW,
+                                             win2, device=dev)
+    check(device_fill.LAST_STATS["groups"] == 2, "700 lanes in 2 groups")
+    launches = kernels.LAUNCHES["device_fill"]
+    by32 = device_fill.align_winners_device(q2, db2, 3, 1, matrix, MODE_SW,
+                                            win2, lanes=32, device=dev)
+    n32 = device_fill.LAST_STATS["groups"]
+    check(kernels.LAUNCHES["device_fill"] - launches == n32 > 2,
+          "one launch per group")
+    budget = device_fill.FILL_BUDGET_BYTES
+    device_fill.FILL_BUDGET_BYTES = 8 * 128 * 320
+    try:
+        cut = device_fill.align_winners_device(q2, db2, 3, 1, matrix,
+                                               MODE_SW, win2, device=dev)
+        n_cut = device_fill.LAST_STATS["groups"]
+    finally:
+        device_fill.FILL_BUDGET_BYTES = budget
+    group_bad = (not same_paths(by32, whole)) + (not same_paths(cut, whole))
+    cases += 2
+    host_bad = 0
+    for i, score, eq, et in win2:
+        if i in whole:
+            want = align_pair_reverse_trick(q2, db2[i], 3, 1, matrix, score,
+                                            eq, et, MODE_SW)
+            host_bad += not (whole[i][:2] == want[:2]
+                             and np.array_equal(whole[i][2], want[2]))
+    check(bad == 0 and group_bad == 0,
+          "device_fill disagrees with its plain version")
+    check(host_bad == 0 and len(whole) >= 0.9 * len(win2),
+          "device_fill paths differ from the host path")
+
+    # (b) exp_device_fill's protocol at full scale: a 513-residue query,
+    # SW x1 top 1,000 on the resident database, the winners aligned on the
+    # host and on the device
+    query = np.random.default_rng(1).integers(0, 20, size=513,
+                                              dtype=np.uint8)
+    proto = exp_device_fill.protocol(srv.engine, srv.ddb, query, matrix,
+                                     1000, 512)
+    check(proto["identical"] and proto["audit_identical"],
+          "device pass differs from the host pass at full scale")
+    check(proto["audit_warnings"] == 0, "the audit warned")
+    check(proto["launches"] > 0 and proto["plain_calls"] == 0,
+          "the full-scale device pass launched no device_fill or ran the "
+          "plain version")
+    win = winners_of(query, srv.ddb, MODE_SW, 3, 1, srv.engine, 1000)
+    groups = device_fill.plan_groups(
+        device_fill.make_jobs(query, srv.ddb.raw, 3, 1, matrix, MODE_SW,
+                              win, host()),
+        512, device_fill.FILL_BUDGET_BYTES, host())
+    packed = [device_fill.pack_group(g, dev) for g in groups]
+    ms = time_cuda(lambda: [device_fill.fill_walk(*a, 3, 1, mat, MODE_SW)
+                            for a in packed], 3)
+    group_ms = [time_cuda(lambda a=a: device_fill.fill_walk(
+        *a, 3, 1, mat, MODE_SW), 2) for a in packed]
+    cells = nbytes = 0
+    kernel_out = [device_fill.fill_walk(*a, 3, 1, mat, MODE_SW)
+                  for a in packed]
+    for a, (_, _, rend_t, _, codes) in zip(packed, kernel_out):
+        qlen, tlen, bottom, top = (t.cpu().numpy() for t in a[2:6])
+        c = band_cells(qlen, bottom, top, rend_t.cpu().numpy() + 1)
+        cells += c
+        # bits written once, letters and parameters read once, outputs
+        # and codes written once
+        nbytes += c + 4 * int(qlen.sum() + tlen.sum()) + 33 * len(qlen) \
+            + codes.numel()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = device_fill.fill_walk_plain(*packed[0], 3, 1, mat, MODE_SW)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    diffs = [int((g.long() - w.long()).abs().max())
+             for g, w in zip(kernel_out[0], want)]
+    b = sum(d > 0 for d in diffs)
+    bad, err, cases = bad + b, max([err] + diffs), cases + 1
+    check(b == 0, "device_fill disagrees with its plain version at full "
+          "scale")
+    ops_ms, _, _ = op_bound_ms(cells, FILL_CELL_MAXES, FILL_CELL_ADDS)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+
+    # (c) the 6 x2 golden files with the switch
+    gold_db, gold_ddb, gold_engine = gold
+    os.environ["OPAL_TPU_DEVICE_FILL"] = "1"
+    try:
+        kernels.reset_counts()
+        t = time.perf_counter()
+        x2_files, x2_lines, x2_bad = x2_goldens(sm, gold_engine, gold_ddb,
+                                                gold_db)
+        x2_s = time.perf_counter() - t
+        gold_counts = (kernels.LAUNCHES["device_fill"],
+                       kernels.PLAIN_CALLS["fill_walk_plain"])
+    finally:
+        os.environ.pop("OPAL_TPU_DEVICE_FILL")
+    check(x2_files == 6 and x2_bad == 0,
+          "x2 golden lines differ with the device fill")
+    check(gold_counts[0] > 0 and gold_counts[1] == 0,
+          "the x2 goldens launched no device_fill or ran the plain version")
+
+    # (d) the served align batch, without and with the switch in turns
+    texts = read_queries(os.path.join(HERE, "tests", "port_data",
+                                      "uniprot_sprot15.fasta"))
+    line = json.dumps({"id": "al", "queries": texts, "align": True,
+                       "top_k": 10})
+
+    def request(fill):
+        if fill:
+            os.environ["OPAL_TPU_DEVICE_FILL"] = "1"
+        try:
+            srv._cache.clear()
+            t = time.perf_counter()
+            out = srv._respond(line)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, out
+        finally:
+            os.environ.pop("OPAL_TPU_DEVICE_FILL", None)
+
+    request(True)  # warm-up
+    kernels.reset_counts()
+    runs = {False: [], True: []}
+    for fill in (False, True, True, False, False, True):
+        runs[fill].append(request(fill))
+    outs = {o for r in runs.values() for _, o in r}
+    check(len(outs) == 1 and '"hits"' in next(iter(outs)),
+          "align answers differ with the device fill")
+    serve_counts = (kernels.LAUNCHES["device_fill"],
+                    kernels.PLAIN_CALLS["fill_walk_plain"])
+    check(serve_counts[0] > 0 and serve_counts[1] == 0,
+          "align requests launched no device_fill or ran the plain version")
+
+    res = {
+        "phase": "device_fill", "cases": cases, "mismatches": bad,
+        "max_abs_err": err, "group_mismatches": group_bad,
+        "host_path_mismatches": host_bad, "groups_by32": n32,
+        "groups_cut_by_budget": n_cut, "tolerance": 0,
+        **{f"full_{k}": v for k, v in proto.items()},
+        "kernel_ms": ms, "group_ms": group_ms,
+        "groups_b_qp_tp": [[a[0].shape[1], a[0].shape[0], a[1].shape[0]]
+                           for a in packed],
+        "band_cells": cells, "bytes": nbytes, "ops_ms": ops_ms,
+        "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_measured_ms": measured_bound_ms(cells, ceil, FILL_CELL_MAXES),
+        "plain_ms": plain_ms,
+        "plain_at": f"the first group, [{packed[0][0].shape[0]}, "
+                    f"{packed[0][1].shape[0]}] x {packed[0][0].shape[1]} "
+                    "lanes",
+        "x2_files": x2_files, "x2_lines": x2_lines,
+        "x2_mismatching_lines": x2_bad, "x2_seconds": x2_s,
+        "x2_launches": gold_counts[0],
+        "serve_align_host_s": [t for t, _ in runs[False]],
+        "serve_align_device_s": [t for t, _ in runs[True]],
+        "serve_align_launches": serve_counts[0],
+        "seconds": time.perf_counter() - t0, "card": smi,
+    }
+    emit(res)
+    return res
+
+
 def idle_share(trace_path):
     """The card's busy and idle share within a torch.profiler Chrome trace:
     the union of kernel intervals over the span from the first to the last
@@ -1972,7 +2267,8 @@ def main():
     kern_multi = phase_kernel_multi(sm.matrix, dev)
     kern_map = phase_kernel_mapping(sm.matrix, dev)
     soak_res = phase_soak()
-    phase_goldens(sm, Engine(device="cuda", block_size=1024))
+    gold_engine = Engine(device="cuda", block_size=1024)
+    gold = phase_goldens(sm, gold_engine) + (gold_engine,)
     srv, ascii_db, setup_s = full_scale_server(sm)
     main_res = phase_main(sm, srv.engine, srv.ddb, setup_s, smi)
     serve_res = phase_serve(srv, smi)
@@ -1982,6 +2278,7 @@ def main():
     kern_panels = phase_kernel_panels(sm.matrix, dev)
     grouped = phase_kernel_grouped(sm, srv.ddb, smi)
     longq = phase_long_query(sm, srv, smi)
+    fill = phase_device_fill(sm, srv, gold, ceil, smi)
 
     emit({"kernels": [{
         "name": "ragged_dp", "route": "cuda",
@@ -2087,6 +2384,25 @@ def main():
         "bound_ms": grouped["bound_ms"],
         "bound_by": grouped["bound_by"],
         "bound_measured_ms": measured_bound_ms(grouped["cells"], ceil),
+        "library_ms": None,
+    }, {
+        "name": "device_fill", "route": "cuda",
+        "source": "opal_tpu_torch/engine/csrc/device_fill.cu",
+        "replaces": "opal_tpu/engine/device_fill.py:90:_fill_walk_fn (XLA)",
+        "launches": fill["full_launches"],
+        "checked_cases": fill["cases"],
+        "mismatches": fill["mismatches"],
+        "max_abs_err": fill["max_abs_err"],
+        "ms": fill["kernel_ms"],
+        "ms_at": f"the {fill['full_winners']} SW winners of a 513-residue "
+                 f"query on the whole database, {len(fill['group_ms'])} "
+                 "groups (B, Qp, Tp) "
+                 f"{fill['groups_b_qp_tp']}",
+        "plain_ms": fill["plain_ms"],
+        "plain_at": fill["plain_at"],
+        "bound_ms": fill["bound_ms"],
+        "bound_by": fill["bound_by"],
+        "bound_measured_ms": fill["bound_measured_ms"],
         "library_ms": None,
     }] + [dict(name=name, route="cuda", **e, library_ms=None)
           for name, e in tool_res["entries"].items()]})

@@ -309,7 +309,7 @@ def main(argv=None) -> int:
             seq_by_gi = {gi: t for gi, t, _ in winners}
             alignment_pass(queries[k], seq_by_gi, args.gap_open,
                            args.gap_ext, score_matrix.matrix, mode,
-                           res_by_gi, list(res_by_gi))
+                           res_by_gi, list(res_by_gi), device=engine.device)
             sections.append(winners)
         cpu_time += time.perf_counter() - start
         if not args.silent:

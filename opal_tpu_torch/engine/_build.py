@@ -2,11 +2,12 @@
 
 Each `<csrc>/<name>.cu` exports a plain C interface and compiles, at first
 use, into `_build/lib<name>-<hash>.so` beside this file (the directory is
-git-ignored). `csrc` is this package's `csrc/` (ragged_dp, multi_dp) unless
-a caller names another source directory (opal_tpu_torch/tools/csrc holds
-the probes); names are unique across the directories. The hash covers the
-source, the headers (`*.cuh`) of its directory and the flags, so an edited
-source or header builds anew and an unchanged one loads what is there.
+git-ignored). `csrc` is this package's `csrc/` (ragged_dp, multi_dp,
+device_fill) unless a caller names another source directory
+(opal_tpu_torch/tools/csrc holds the probes); names are unique across the
+directories. The hash covers the source, the headers (`*.cuh`) of its
+directory and the flags, so an edited source or header builds anew and an
+unchanged one loads what is there.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("ragged_dp", "multi_dp")
+KERNELS = ("ragged_dp", "multi_dp", "device_fill")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 # asks ptxas for its register / spill report; the binary is the same

@@ -76,9 +76,9 @@ PANEL_ROWS = 1024
 # Launches of each kernel and calls of each plain version; the counts
 # let a run show which path it took.
 LAUNCHES = {"ragged_dp": 0, "ragged_dp_flags": 0, "multi_dp": 0,
-            "ragged_dp_panel": 0, "ragged_dp_grouped": 0}
+            "ragged_dp_panel": 0, "ragged_dp_grouped": 0, "device_fill": 0}
 PLAIN_CALLS = {"ragged_score_plain": 0, "multi_score_plain": 0,
-               "ragged_panel_plain": 0}
+               "ragged_panel_plain": 0, "fill_walk_plain": 0}
 
 # tracker row ids (opal_tpu's TR_* numbering, kept for reading across)
 TR_BEST = 0      # SW best score / HW-OV last-row running max / OV score

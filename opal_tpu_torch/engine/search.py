@@ -14,9 +14,11 @@ query needs no other method: the port's lane width never depends on Q, so
 opal_tpu's lane-width downshift (preferred_block_size) has no counterpart. Full alignment (search
 type 2) scores with ends on the card, then reconstructs each path on the
 host (alignment_pass: the reverse-pair banded traceback of traceback.py,
-in C where a compiler is present). Engine(precision="adaptive") runs the
-kernel with its overflow-flag rows and reports in last_search_stats which
-reference precision each sequence needed (engine/cascade.py).
+in C where a compiler is present), or with OPAL_TPU_DEVICE_FILL=1 fills
+and walks the winners on the card (engine/device_fill.py).
+Engine(precision="adaptive") runs the kernel with its overflow-flag rows
+and reports in last_search_stats which reference precision each sequence
+needed (engine/cascade.py).
 
 Every entry point runs on the engine's device, "cuda" unless the caller
 asks for "cpu"; without CUDA the default engine raises.
@@ -358,11 +360,9 @@ def get_default_engine() -> Engine:
 
 
 def alignment_pass(query, db_list, gap_open, gap_ext, matrix, mode,
-                   results, cand):
+                   results, cand, device="cuda"):
     """Reconstruct alignment paths for the candidate indices (opal_tpu's
-    alignment_pass, opal_tpu/engine/search.py:437-556, without its device
-    fill, which waits for the port of engine/device_fill.py: ROADMAP.md
-    A.12).
+    alignment_pass, opal_tpu/engine/search.py:437-556).
 
     results[i] must already carry the exact score and end locations for
     every i in cand (any indexable container of SearchResult works: a dict
@@ -371,7 +371,16 @@ def alignment_pass(query, db_list, gap_open, gap_ext, matrix, mode,
     degenerate optima keep exact score/end and omit the path (the
     reference aborts there, src/opal.cpp:1497). The per-pair traceback is
     host work, and its native C path releases the GIL, so 32 or more pairs
-    run on a thread pool across the host's cores."""
+    run on a thread pool across the host's cores.
+
+    OPAL_TPU_DEVICE_FILL=1 (opal_tpu's switch, read where it reads it):
+    two or more pairs are first filled and walked on `device`
+    (engine/device_fill.py, the device_fill kernel on "cuda", its plain
+    version on "cpu"; without CUDA the default raises); the lanes it does
+    not return go on to the host path, so the output is the same either
+    way. OPAL_TPU_DEVICE_FILL_CHECK=1 audits that: every device-filled
+    lane is recomputed on the host path, and a lane that differs warns
+    (RuntimeWarning) and takes the host result."""
 
     def _align_one(i):
         r = results[i]
@@ -395,6 +404,35 @@ def alignment_pass(query, db_list, gap_open, gap_ext, matrix, mode,
             r.end_location_query = r.end_location_target = -1
         else:
             todo_align.append(i)
+
+    if os.environ.get("OPAL_TPU_DEVICE_FILL") == "1" and len(todo_align) >= 2:
+        from .device_fill import align_winners_device
+
+        winners = [(i, results[i].score, results[i].end_location_query,
+                    results[i].end_location_target) for i in todo_align]
+        device_done = align_winners_device(
+            query, db_list, gap_open, gap_ext, matrix, mode, winners,
+            device=device)
+        if os.environ.get("OPAL_TPU_DEVICE_FILL_CHECK") == "1":
+            # replay validation pins score, ends and the path's validity;
+            # the audit pins the path itself to the host one
+            for i in list(device_done):
+                _, host_out, exc = _align_one(i)
+                if exc is not None or (
+                        host_out[:2] != device_done[i][:2]
+                        or not np.array_equal(host_out[2],
+                                              device_done[i][2])):
+                    warnings.warn(
+                        f"device fill lane {i} differs from host path; "
+                        "using host result", RuntimeWarning, stacklevel=2)
+                    del device_done[i]
+        for i, (sq, st, ops) in device_done.items():
+            r = results[i]
+            r.start_location_query = sq
+            r.start_location_target = st
+            r.alignment = ops
+            r.alignment_length = len(ops)
+        todo_align = [i for i in todo_align if i not in device_done]
 
     workers = min(os.cpu_count() or 1, 16)
     if workers > 1 and len(todo_align) >= 32:
@@ -561,7 +599,7 @@ def search_database(
         # candidates need a pass
         cand = range(n) if align_set is None else sorted(align_set)
         alignment_pass(query, db_list, gap_open, gap_ext, matrix, mode,
-                       results, cand)
+                       results, cand, device=engine.device)
     else:
         # reference: src/opal.cpp:1508-1515
         for r in results:

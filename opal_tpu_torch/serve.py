@@ -221,7 +221,7 @@ class Server:
                     rows[i]
                 results[i] = r
             alignment_pass(q, self.db, go, ge, self.sm.matrix, mode,
-                           results, order)
+                           results, order, device=self.engine.device)
             answers.append([
                 [i, results[i].score,
                  int(results[i].start_location_query),

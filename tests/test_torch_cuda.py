@@ -498,3 +498,86 @@ def test_sstack_probe_matches_plain(cuda, S, noprof):
         torch.testing.assert_close(
             got, ss.sstack_plain(profile, stream, meta, nb, noprof), rtol=0,
             atol=0)
+
+
+# the device alignment fill (engine/device_fill.py, csrc/device_fill.cu)
+
+def _fill_problem(cuda, mode, go, ge):
+    """tests/test_device_fill.py's problem (seed 23: a 90-letter query, 120
+    targets with planted prefix ties and a 1-letter target), its winners
+    from an x1 search on the card, and their jobs."""
+    from opal_tpu_torch.constants import SEARCH_SCORE_END
+    from opal_tpu_torch.engine import device_fill
+
+    matrix = ScoreMatrix.blosum50().matrix
+    A = matrix.shape[0]
+    rng = np.random.default_rng(23)
+    q = rng.integers(0, A - 4, size=90, dtype=np.uint8)
+    db = [rng.integers(0, A - 4, size=int(rng.integers(4, 260)),
+                       dtype=np.uint8) for _ in range(120)]
+    for i in range(0, 120, 9):
+        db[i] = q[: int(rng.integers(3, 90))].copy()
+    db[5] = q[:1].copy()
+    out = search_database_arrays(q, db, go, ge, matrix, mode=mode,
+                                 search_type=SEARCH_SCORE_END,
+                                 engine=Engine(device="cuda",
+                                               block_size=128))
+    winners = [(i, int(out["score"][i]), int(out["end_q"][i]),
+                int(out["end_t"][i])) for i in range(len(db))
+               if not (mode == MODE_SW and out["score"][i] == 0)]
+    host = dict.fromkeys(("no_end", "no_band", "value_bound", "budget"), 0)
+    jobs = device_fill.make_jobs(q, db, go, ge, matrix, mode, winners, host)
+    return matrix, q, db, winners, jobs
+
+
+@pytest.mark.parametrize("go,ge", [(3, 1), (5, 5), (10, 2)])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_fill_kernel_matches_plain(cuda, mode, go, ge):
+    """All five outputs, exact, on one group of every winner and on a
+    1-lane group; the last lane's limit is raised by one (ok is False)."""
+    from opal_tpu_torch.engine import device_fill
+
+    matrix, _, _, _, jobs = _fill_problem(cuda, mode, go, ge)
+    jobs[-1] = jobs[-1][:1] + (jobs[-1][1] + 1,) + jobs[-1][2:]
+    mat = torch.from_numpy(matrix.astype(np.int32)).to(cuda)
+    for group in (jobs, jobs[:1]):
+        args = device_fill.pack_group(group, cuda)
+        launches = kernels.LAUNCHES["device_fill"]
+        got = device_fill.fill_walk(*args, go, ge, mat, mode)
+        assert kernels.LAUNCHES["device_fill"] == launches + 1
+        want = device_fill.fill_walk_plain(*args, go, ge, mat, mode)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        assert len(group) == 1 or not bool(got[3][-1])
+
+
+def test_fill_budget_split_on_card(cuda, monkeypatch):
+    """Groups cut by a small byte budget give the paths of one group."""
+    from opal_tpu_torch.engine import device_fill
+
+    matrix, q, db, winners, _ = _fill_problem(cuda, MODE_OV, 3, 1)
+    whole = device_fill.align_winners_device(q, db, 3, 1, matrix, MODE_OV,
+                                             winners)
+    assert device_fill.LAST_STATS["groups"] == 1
+    monkeypatch.setattr(device_fill, "FILL_BUDGET_BYTES", 4 * 128 * 320)
+    launches = kernels.LAUNCHES["device_fill"]
+    split = device_fill.align_winners_device(q, db, 3, 1, matrix, MODE_OV,
+                                             winners)
+    groups = device_fill.LAST_STATS["groups"]
+    assert groups > 4 and kernels.LAUNCHES["device_fill"] == launches + groups
+    assert set(split) == set(whole) and len(whole) >= 0.9 * len(winners)
+    for i in whole:
+        assert split[i][:2] == whole[i][:2]
+        np.testing.assert_array_equal(split[i][2], whole[i][2])
+
+
+def test_fill_build_failure_raises(cuda, monkeypatch):
+    from opal_tpu_torch.engine import _build, device_fill
+
+    monkeypatch.setattr(_build, "FLAGS", _build.FLAGS + ["--no-such-flag"])
+    monkeypatch.setattr(_build, "_loaded", {})
+    z = torch.ones(1, dtype=torch.int32, device=cuda)
+    aq = torch.zeros((64, 1), dtype=torch.int32, device=cuda)
+    mat = torch.zeros((4, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        device_fill.fill_walk(aq, aq, z, z, z, z, z, 3, 1, mat, MODE_SW)

@@ -11,6 +11,9 @@ whole H against a numpy transcription of tools/roofline.py:127-135),
 exp_unroll's best score from every variant against every TPU variant, and
 exp_sstack's emitted rows. The CUDA kernels themselves are held against
 the plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
+exp_device_fill (the device alignment fill against the host path) runs
+here only as an entry point; its plain version is held against opal_tpu
+in tests/test_torch_device_fill.py.
 """
 import importlib.util
 import json
@@ -23,6 +26,7 @@ import pytest
 import torch
 
 from opal_tpu.engine import pallas_kernels as pk
+from opal_tpu_torch.tools import exp_device_fill as port_device_fill
 from opal_tpu_torch.tools import exp_sstack_ablate as port_sstack
 from opal_tpu_torch.tools import exp_unroll as port_unroll
 from opal_tpu_torch.tools import roofline as port_roofline
@@ -255,7 +259,8 @@ def test_sstack_plain_variants_agree():
 
 # ------------------------------------------------------------ entry points
 
-@pytest.mark.parametrize("module", [port_roofline, port_unroll, port_sstack],
+@pytest.mark.parametrize("module", [port_roofline, port_unroll, port_sstack,
+                                    port_device_fill],
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_entry_point_on_the_cpu_prints_one_json_line(module, capsys):
     assert module.main(["--device", "cpu"]) == 0
@@ -271,9 +276,11 @@ def test_entry_point_on_the_cpu_prints_one_json_line(module, capsys):
                 yield from keys(v)
 
     assert not {"ms", "gcups", "instr_per_sm_clk"} & set(keys(res))
+    assert not [k for k in keys(res) if k.endswith(("_s", "_ms"))]
 
 
-@pytest.mark.parametrize("module", [port_roofline, port_unroll, port_sstack],
+@pytest.mark.parametrize("module", [port_roofline, port_unroll, port_sstack,
+                                    port_device_fill],
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_entry_point_default_needs_cuda(module, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
