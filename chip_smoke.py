@@ -83,12 +83,17 @@ the last line:
              plain version, exact on all five outputs, in 4 modes x 5 gap
              pairs on planted ties, 1-letter targets and a lane that is not
              ok, 1-lane and 512-lane groups, several groups in one call and
-             groups cut by a small byte budget; then
+             groups cut by a small byte budget, and the warp wavefront's
+             edge shapes (opal_tpu_torch.tools.fill_shapes: tlen 1/31/33,
+             qlen one past a pass, narrow bands, stops near and far from
+             tlen) at plan_fill's strip rows and at 16; then
              opal_tpu_torch.tools.exp_device_fill's protocol at full scale
              (a 513-residue query, SW x1 top 1,000 on the resident database,
              the winners aligned on the host, on the device and with the
              audit: identical, 0 warnings; times and the host lanes by
-             reason); the kernel's ms and bound at those groups; the 6 x2
+             reason); the kernel's ms and bound at those groups, each
+             group's strip rows, passes and computed against executed
+             columns, and ptxas's registers; the 6 x2
              golden files and the served align batch with the switch.
 
 Then the kernels line and the last line {"ok": true, "device": {...}}.
@@ -158,7 +163,8 @@ def ptxas_summary(log):
     """{instantiation: "N registers, S spill bytes"} from ptxas's report;
     ragged_dp's instantiations read mode<M>_end<E>_flags<F> (and _panel for
     its panel role), multi_dp's mode<M>_end<E>, device_fill's
-    device_fill_mode<M>, a probe's <name>_kernel<template arguments>."""
+    device_fill_mode<M>_rows<R>, a probe's <name>_kernel<template
+    arguments>."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -167,9 +173,10 @@ def ptxas_summary(log):
                           m.group(1))
             name = m.group(1)
             probe = re.search(r"(peak|scan|unroll|sstack)_kernel", name)
-            fill = re.search(r"device_fill_kernelILi(\d)E", name)
+            fill = re.search(r"device_fill_kernelILi(\d)ELi(\d+)E", name)
             if fill:
-                t, name = None, f"device_fill_mode{fill.group(1)}"
+                t, name = None, (f"device_fill_mode{fill.group(1)}"
+                                 f"_rows{fill.group(2)}")
             elif probe:  # a tools probe: its template arguments
                 t = None
                 name = probe.group(0) + "<" + ",".join(
@@ -1975,16 +1982,19 @@ def band_cells(qlen, bottom, top, cols):
     return total
 
 
-def phase_device_fill(sm, srv, gold, ceil, smi):
+def phase_device_fill(sm, srv, gold, ceil, smi, ptxas):
     """The device fill (OPAL_TPU_DEVICE_FILL=1): the kernel against its
-    plain version on the card; exp_device_fill's protocol at full scale;
-    the 6 x2 golden files and the served align batch with the switch."""
+    plain version on the card, on planted problems and at the wavefront's
+    edge shapes; exp_device_fill's protocol at full scale, with each
+    group's plan (strip rows, passes) and its computed against executed
+    columns; the 6 x2 golden files and the served align batch with the
+    switch. `ptxas` is the build's register report of device_fill."""
     import torch
 
     from opal_tpu_torch.constants import MODE_SW
     from opal_tpu_torch.engine import device_fill, kernels
     from opal_tpu_torch.engine.search import Engine, search_database_arrays
-    from opal_tpu_torch.tools import exp_device_fill
+    from opal_tpu_torch.tools import exp_device_fill, fill_shapes
     from opal_tpu_torch.traceback import align_pair_reverse_trick
 
     t0 = time.perf_counter()
@@ -2024,6 +2034,21 @@ def phase_device_fill(sm, srv, gold, ceil, smi):
                 bad, err, cases = bad + b, max(err, e), cases + 1
                 check(len(group) == 1 or not bool(got[3][-1]),
                       "device_fill: the planted lane is ok")
+    # the wavefront's edges (tools/fill_shapes.py): tlen 1/31/33, qlen one
+    # past a pass, bands 1-3 rows wide, stops near and far from tlen, at
+    # plan_fill's strip rows and at 16 (up to three passes a lane)
+    edge_cases = 0
+    for _, mode, go, ge, jobs in fill_shapes.edge_groups(matrix,
+                                                         device=dev):
+        args = device_fill.pack_group(jobs, dev)
+        for rows in (None, 16):
+            device_fill.FILL_ROWS = rows
+            try:
+                b, e, _ = fill_diff(args, go, ge, mat, mode)
+            finally:
+                device_fill.FILL_ROWS = None
+            bad, err, cases = bad + b, max(err, e), cases + 1
+            edge_cases += 1
     q2, db2 = fill_problem(700, 24, matrix.shape[0])
     win2 = winners_of(q2, db2, MODE_SW, 3, 1)
     groups = device_fill.plan_groups(
@@ -2090,9 +2115,31 @@ def phase_device_fill(sm, srv, gold, ceil, smi):
     cells = nbytes = 0
     kernel_out = [device_fill.fill_walk(*a, 3, 1, mat, MODE_SW)
                   for a in packed]
-    for a, (_, _, rend_t, _, codes) in zip(packed, kernel_out):
+    plans = []
+    for a, (_, _, rend_t, _, codes), g_ms in zip(packed, kernel_out,
+                                                 group_ms):
         qlen, tlen, bottom, top = (t.cpu().numpy() for t in a[2:6])
-        c = band_cells(qlen, bottom, top, rend_t.cpu().numpy() + 1)
+        executed = rend_t.cpu().numpy() + 1
+        computed = device_fill.computed_columns(tlen, executed, MODE_SW)
+        plan = device_fill.plan_fill(a[0].shape[0], a[1].shape[0],
+                                     a[0].shape[1])
+        rows_ms = {}  # the same group at each strip height plan_fill has
+        for rows in (16, 32):
+            device_fill.FILL_ROWS = rows
+            try:
+                rows_ms[rows] = time_cuda(lambda a=a: device_fill.fill_walk(
+                    *a, 3, 1, mat, MODE_SW), 2)
+            finally:
+                device_fill.FILL_ROWS = None
+        plans.append({
+            "b_qp_tp": [a[0].shape[1], a[0].shape[0], a[1].shape[0]],
+            "rows": plan["rows"], "passes": plan["passes"],
+            "columns_executed": int(executed.sum()),
+            "columns_computed": int(computed.sum()),
+            "speculative_share": float(1 - executed.sum() / computed.sum()),
+            "longest_lane_columns": int(executed.max()), "ms": g_ms,
+            "ms_at_rows": rows_ms})
+        c = band_cells(qlen, bottom, top, executed)
         cells += c
         # bits written once, letters and parameters read once, outputs
         # and codes written once
@@ -2111,6 +2158,7 @@ def phase_device_fill(sm, srv, gold, ceil, smi):
           "scale")
     ops_ms, _, _ = op_bound_ms(cells, FILL_CELL_MAXES, FILL_CELL_ADDS)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_measured = measured_bound_ms(cells, ceil, FILL_CELL_MAXES)
 
     # (c) the 6 x2 golden files with the switch
     gold_db, gold_ddb, gold_engine = gold
@@ -2162,18 +2210,22 @@ def phase_device_fill(sm, srv, gold, ceil, smi):
           "align requests launched no device_fill or ran the plain version")
 
     res = {
-        "phase": "device_fill", "cases": cases, "mismatches": bad,
+        "phase": "device_fill", "cases": cases, "edge_cases": edge_cases,
+        "mismatches": bad,
         "max_abs_err": err, "group_mismatches": group_bad,
         "host_path_mismatches": host_bad, "groups_by32": n32,
         "groups_cut_by_budget": n_cut, "tolerance": 0,
         **{f"full_{k}": v for k, v in proto.items()},
-        "kernel_ms": ms, "group_ms": group_ms,
+        "kernel_ms": ms, "group_ms": group_ms, "groups_plan": plans,
+        "ptxas": ptxas,
         "groups_b_qp_tp": [[a[0].shape[1], a[0].shape[0], a[1].shape[0]]
                            for a in packed],
         "band_cells": cells, "bytes": nbytes, "ops_ms": ops_ms,
         "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_measured_ms": measured_bound_ms(cells, ceil, FILL_CELL_MAXES),
+        "bound_measured_ms": bound_measured,
+        "bound_share": max(ops_ms, bytes_ms) / ms,
+        "bound_measured_share": bound_measured / ms,
         "plain_ms": plain_ms,
         "plain_at": f"the first group, [{packed[0][0].shape[0]}, "
                     f"{packed[0][1].shape[0]}] x {packed[0][0].shape[1]} "
@@ -2278,7 +2330,8 @@ def main():
     kern_panels = phase_kernel_panels(sm.matrix, dev)
     grouped = phase_kernel_grouped(sm, srv.ddb, smi)
     longq = phase_long_query(sm, srv, smi)
-    fill = phase_device_fill(sm, srv, gold, ceil, smi)
+    fill = phase_device_fill(sm, srv, gold, ceil, smi,
+                             ptxas_summary(log["device_fill"]["log"]))
 
     emit({"kernels": [{
         "name": "ragged_dp", "route": "cuda",

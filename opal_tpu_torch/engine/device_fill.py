@@ -7,8 +7,8 @@ and target[:end_t+1][::-1], whose end is the forward start. Here a group of
 such pairs, one per lane, is filled and walked on the card in one launch
 (csrc/device_fill.cu, `device_fill`), which replaces opal_tpu's XLA
 `_fill_walk_fn` (opal_tpu/engine/device_fill.py:90-318). Per cell the fill
-records five decision bits in a [Tp, Qp, B] uint8 matrix that never leaves
-the card:
+records five decision bits in a uint8 matrix that never leaves the card
+([Tp, Qp, B] in the plain version, lane-major [B, Tp, Qp] in the kernel):
 
   bit0  H == E            (the walk prefers E on ties)
   bit1  H == F            (then F, then the diagonal)
@@ -25,6 +25,8 @@ unpacks them and replay-validates every path (traceback._replay_batch).
 `fill_walk` launches the kernel for CUDA tensors, runs `fill_walk_plain`
 (a PyTorch transcription of `_fill_walk_fn`, int32) for CPU tensors and
 raises for anything else; the two agree on all five outputs, bit for bit.
+The kernel runs one warp per lane, a column wavefront over strips of R
+query rows (`plan_fill` picks R and sizes the scratch).
 `align_winners_device` is the host driver (opal_tpu's :325-474).
 Lanes that go to the host path instead are opal_tpu's own: no closed-form
 band, values past VALUE_BOUND, a failed replay; and lanes whose bits alone
@@ -61,10 +63,15 @@ BIGR = 1 << 24          # "no row found" marker of the end_q search
 # Real DP values must stay far from the LSB algebra; |score| and the
 # per-column chain offsets must fit int32.
 VALUE_BOUND = 1 << 28
-# Bytes of decision bits one launch may hold ([Tp, Qp, B] uint8): a group
+# Bytes of decision bits one launch may hold (Tp x Qp x B uint8): a group
 # is cut where it would pass this, and a lane whose bits alone pass it
 # goes to the host path.
 FILL_BUDGET_BYTES = 1 << 31
+# Query rows per strip of the kernel (16 or 32); None lets plan_fill pick
+# by Qp. Tests set 16 to reach several passes per lane at a small Qp;
+# chip_smoke times the protocol's groups at both.
+FILL_ROWS = None
+WARP = 32  # threads of the warp that fills one lane
 
 # what the last align_winners_device call did (OPAL_TPU_DEVICE_FILL_STATS
 # prints it): groups and their shapes, lanes filled on the device, lanes
@@ -79,6 +86,37 @@ def _round_up(x, q):
 def steps_for(Qp: int, Tp: int) -> int:
     """Walk steps of a [Qp, Tp] group: every live step emits one op."""
     return Qp + Tp + 4
+
+
+def plan_fill(Qp: int, Tp: int, B: int, rows=None) -> dict:
+    """The kernel's launch plan for a [Qp, Tp] group of B lanes: `rows` (R)
+    query rows per strip, 16 unless Qp passes 32 strips of 16, then 32 (a
+    Qp 576-1024 lane in one pass rather than two);
+    `passes` of 32 strips the tallest lane needs; `scratch_bytes` of the
+    [B, Tp] int2 row and int4 summary scratch that passes hand on through
+    (0 for one pass); `blocks` of 4 lanes (warps)."""
+    R = rows if rows is not None else (16 if Qp <= WARP * 16 else 32)
+    if R not in (16, 32):
+        raise ValueError("a strip holds 16 or 32 rows")
+    passes = -(-Qp // (WARP * R))
+    return {"rows": R, "passes": passes,
+            "scratch_bytes": B * Tp * (8 + 16) if passes > 1 else 0,
+            "blocks": -(-B // 4)}
+
+
+def computed_columns(tlen, executed, mode):
+    """Columns the first thread of a lane's last pass computes, per lane,
+    against the `executed` columns (rend_t + 1 where the guard stops): the
+    last thread learns of the stop 31 columns behind the first, so a lane
+    that stops early computes up to 31 columns more than it executes (NW
+    and lanes that run to tlen compute exactly theirs). Exact when the
+    lane runs one pass; an earlier pass may stop sooner."""
+    tlen = np.asarray(tlen, np.int64)
+    executed = np.asarray(executed, np.int64)
+    if mode == MODE_NW:
+        return tlen.copy()
+    return np.where(executed >= tlen, tlen,
+                    np.minimum(tlen, executed + WARP - 1))
 
 
 # ----------------------------------------------------------------------
@@ -282,11 +320,17 @@ def fill_walk(aq, at, qlen, tlen, bottom, top, limit, go, ge, matrix, mode):
     if dev.type != "cuda":
         raise ValueError(f"no device_fill kernel for device {dev}")
     Qp, B = aq.shape
+    if Qp % 64:
+        raise ValueError("the kernel takes Qp in multiples of 64")
     Tp = at.shape[0]
     steps = steps_for(Qp, Tp)
+    plan = plan_fill(Qp, Tp, B, FILL_ROWS)
     i32 = torch.int32
-    dirs = torch.empty((Tp, Qp, B), dtype=torch.uint8, device=dev)
-    scratch = torch.empty((2, Qp, B), dtype=i32, device=dev)
+    dirs = torch.empty((B, Tp, Qp), dtype=torch.uint8, device=dev)
+    # the int2 rows and int4 summaries that passes hand on; a token
+    # allocation when every lane runs one pass (the kernel touches none)
+    n = plan["scratch_bytes"] // 24 or 1
+    scratch = torch.empty(6 * n, dtype=i32, device=dev)
     out = torch.empty((3, B), dtype=i32, device=dev)
     ok = torch.empty(B, dtype=torch.bool, device=dev)
     codes = torch.empty((steps // 2, B), dtype=torch.uint8, device=dev)
@@ -295,10 +339,11 @@ def fill_walk(aq, at, qlen, tlen, bottom, top, limit, go, ge, matrix, mode):
         err = lib.device_fill_launch(
             aq.data_ptr(), at.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
             bottom.data_ptr(), top.data_ptr(), limit.data_ptr(),
-            matrix.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-            dirs.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            out[2].data_ptr(), ok.data_ptr(), codes.data_ptr(), Qp, Tp, B,
-            matrix.shape[0], int(mode), int(go), int(ge),
+            matrix.data_ptr(), scratch[4 * n:].data_ptr(),
+            scratch[:4 * n].data_ptr(), dirs.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), ok.data_ptr(),
+            codes.data_ptr(), Qp, Tp, B, matrix.shape[0], int(mode),
+            int(go), int(ge), plan["rows"],
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"device_fill launch failed: CUDA error {err}")
@@ -312,7 +357,7 @@ def _lib():
 
     lib = _build.load("device_fill")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.device_fill_launch.argtypes = [vp] * 16 + [ci] * 7 + [vp]
+    lib.device_fill_launch.argtypes = [vp] * 16 + [ci] * 8 + [vp]
     lib.device_fill_launch.restype = ci
     return lib
 
@@ -354,7 +399,7 @@ def make_jobs(query, db_list, go, ge, matrix, mode, winners, host):
 
 def plan_groups(jobs, lanes, budget, host):
     """Jobs sorted by (len(aq), len(at)) and cut into groups of at most
-    `lanes` lanes whose [Tp, Qp, B] bits stay within `budget` bytes (Qp and
+    `lanes` lanes whose Tp x Qp x B bits stay within `budget` bytes (Qp and
     Tp padded to 64). A lane whose bits alone pass the budget is counted
     in host["budget"] and left out."""
     jobs = sorted(jobs, key=lambda j: (len(j[2]), len(j[3])))

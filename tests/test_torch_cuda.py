@@ -551,6 +551,41 @@ def test_fill_kernel_matches_plain(cuda, mode, go, ge):
         assert len(group) == 1 or not bool(got[3][-1])
 
 
+@pytest.fixture(scope="module")
+def fill_edges():
+    """opal_tpu_torch.tools.fill_shapes' groups by name."""
+    from opal_tpu_torch.tools import fill_shapes
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    matrix = ScoreMatrix.blosum50().matrix
+    return {g[0]: g for g in fill_shapes.edge_groups(matrix, device="cuda")}
+
+
+@pytest.mark.parametrize("rows", [None, 16])
+@pytest.mark.parametrize("name", ["short_sw", "tall_sw", "mixed_nw",
+                                  "mixed_hw", "mixed_ov", "mixed_sw"])
+def test_fill_kernel_at_edges(cuda, fill_edges, monkeypatch, name, rows):
+    """The kernel against its plain version on opal_tpu_torch.tools.
+    fill_shapes' groups (tlen 1/31/33, qlen one past a pass, bands 1-3 rows
+    wide, stops near and far from tlen), at plan_fill's strip height and at
+    16 rows (a lane of 1,025 rows then takes three passes)."""
+    from opal_tpu_torch.engine import device_fill
+
+    matrix = ScoreMatrix.blosum50().matrix
+    _, mode, go, ge, jobs = fill_edges[name]
+    monkeypatch.setattr(device_fill, "FILL_ROWS", rows)
+    mat = torch.from_numpy(matrix.astype(np.int32)).to(cuda)
+    args = device_fill.pack_group(jobs, cuda)
+    launches = kernels.LAUNCHES["device_fill"]
+    got = device_fill.fill_walk(*args, go, ge, mat, mode)
+    assert kernels.LAUNCHES["device_fill"] == launches + 1
+    want = device_fill.fill_walk_plain(*args, go, ge, mat, mode)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 def test_fill_budget_split_on_card(cuda, monkeypatch):
     """Groups cut by a small byte budget give the paths of one group."""
     from opal_tpu_torch.engine import device_fill

@@ -52,6 +52,7 @@ def test_package_import_pulls_in_no_jax():
             "opal_tpu_torch.tools.exp_unroll, "
             "opal_tpu_torch.tools.exp_sstack_ablate, "
             "opal_tpu_torch.tools.exp_device_fill, "
+            "opal_tpu_torch.tools.fill_shapes, "
             "opal_tpu_torch.engine.device_fill; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'opal_tpu')))")
