@@ -94,7 +94,19 @@ the last line:
              reason); the kernel's ms and bound at those groups, each
              group's strip rows, passes and computed against executed
              columns, and ptxas's registers; the 6 x2
-             golden files and the served align batch with the switch.
+             golden files and the served align batch with the switch;
+15. multi_device - the database over a device mesh on the one card
+             (opal_tpu_torch.parallel): the dry run dryrun_multichip(2) (the
+             card named twice); the main path (SW x0 best of 5, SW x1 top
+             10) without a mesh, on a 1-device mesh and in 2 parts on the
+             card, all equal, with each part's kernel ms and launches; each
+             part's ragged_dp and multi_dp against their plain versions on
+             its first block; a 16,000-residue query at x1 in panels on the
+             2-part mesh, equal to no mesh; then two OS processes in one
+             gloo group sharing the card (python -m
+             opal_tpu_torch.parallel.multihost on 4 FASTA shards of the
+             database, a 2-part mesh each): ranked top 10 at x0 and x1 and
+             search_aligned top 5, equal to one process's search.
 
 Then the kernels line and the last line {"ok": true, "device": {...}}.
 Needs CUDA, nvcc and the repository checkout around this file; imports
@@ -1930,6 +1942,258 @@ def phase_long_query(sm, srv, smi):
     return res
 
 
+def _fasta_shards(ascii_db, n_shards, directory):
+    """The database written as n_shards FASTA files of contiguous
+    quarters (or other fractions) of it; returns their paths."""
+    paths = []
+    cuts = np.linspace(0, len(ascii_db), n_shards + 1).astype(int)
+    for s in range(n_shards):
+        p = os.path.join(directory, f"shard{s}.fasta")
+        with open(p, "wb") as f:
+            for i in range(cuts[s], cuts[s + 1]):
+                f.write(b">synth12071|%d\n" % i)
+                f.write(ascii_db[i].tobytes())
+                f.write(b"\n")
+        paths.append(p)
+    return paths
+
+
+def phase_multi_device(sm, srv, ascii_db, smi):
+    """The database over a device mesh on the one card (see the module
+    docstring, phase 15)."""
+    import io
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+
+    from opal_tpu_torch.constants import (
+        MODE_SW,
+        SEARCH_ALIGNMENT,
+        SEARCH_SCORE,
+        SEARCH_SCORE_END,
+    )
+    from opal_tpu_torch.engine import kernels
+    from opal_tpu_torch.engine.search import (
+        Engine,
+        search_database,
+        search_database_arrays,
+    )
+    from opal_tpu_torch.parallel.dryrun import dryrun_multichip
+    from opal_tpu_torch.parallel.multihost import shard_for_process
+    from opal_tpu_torch.parallel.shard import db_mesh
+
+    t_phase = time.perf_counter()
+    matrix, db = sm.matrix, srv.db
+    query = _o74807(sm)
+    Q = len(query)
+    res = {"phase": "multi_device", "cuda_devices": torch.cuda.device_count(),
+           "card": smi}
+
+    # 1) the dry run over a 2-device mesh (the card named twice)
+    kernels.reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        dry = dryrun_multichip(2)
+    torch.cuda.synchronize()
+    res["dryrun"] = {"seconds": time.perf_counter() - t,
+                     "last_line": text.getvalue().strip().splitlines()[-1],
+                     "live_parts": dry["live_parts"],
+                     "distinct_devices": dry["distinct_devices"],
+                     "launches": dict(kernels.LAUNCHES),
+                     "plain_calls": sum(kernels.PLAIN_CALLS.values())}
+    check(all(kernels.LAUNCHES[k] > 0 for k in
+              ("ragged_dp", "multi_dp", "ragged_dp_panel"))
+          and res["dryrun"]["plain_calls"] == 0,
+          "the dry run did not launch ragged_dp, multi_dp and the panels")
+
+    # 2) the main path (SW x0 best of 5, SW x1 top 10) without a mesh, on
+    # a 1-device mesh and in 2 parts on the card
+    layouts = {"none": (srv.engine, srv.ddb, None)}
+    for name, devs in (("mesh1", ["cuda"]), ("mesh2", ["cuda", "cuda"])):
+        eng = Engine(device="cuda", block_size=1024, mesh=db_mesh(devs))
+        t = time.perf_counter()
+        ddb = eng.upload(db)
+        torch.cuda.synchronize()
+        layouts[name] = (eng, ddb, time.perf_counter() - t)
+    outs = {}
+    for name, (eng, ddb, upload_s) in layouts.items():
+        def search(x=SEARCH_SCORE, top_k=0):
+            t = time.perf_counter()
+            out = search_database_arrays(query, ddb, 3, 1, matrix,
+                                         mode=MODE_SW, search_type=x,
+                                         engine=eng, top_k=top_k)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, out
+
+        live = [p for p in ddb.parts if p.blocks]
+        search()  # warm-up
+        kernels.reset_counts()
+        runs = [search() for _ in range(5)]
+        launches = kernels.LAUNCHES["ragged_dp"]
+        check(launches >= 5 * len(live)
+              and kernels.PLAIN_CALLS["ragged_score_plain"] == 0,
+              f"{name}: ragged_dp was not launched on every part")
+        search(SEARCH_SCORE_END, 10)  # warm-up
+        top_s, top = search(SEARCH_SCORE_END, 10)
+        outs[name] = (runs[0][1], top)
+        profile = eng._backend.prepare_query(
+            matrix[query.astype(np.int64)].T, 3, 1)
+        parts = [{"blocks": len(p.blocks),
+                  "residues": int(sum(int(b.lengths.sum())
+                                      for b in p.blocks)),
+                  "kernel_ms": time_cuda(lambda p=p: kernels.ragged_score(
+                      profile, p.stream, MODE_SW, SEARCH_SCORE, 3, 1), 5),
+                  "launch_ms": launch_split(
+                      lambda ev, p=p: kernels.ragged_score(
+                          profile, p.stream, MODE_SW, SEARCH_SCORE, 3, 1,
+                          events=ev))}
+                 for p in live]
+        res[name] = {
+            "parts": len(ddb.parts), "upload_s": upload_s,
+            "search_s": [t for t, _ in runs],
+            "best_s": min(t for t, _ in runs),
+            "gcups": ddb.total_residues * Q / min(t for t, _ in runs) / 1e9,
+            "launches": launches, "launches_per_search": launches / 5,
+            "kernel_ms": time_cuda(lambda: eng._backend.dispatch_many(
+                profile, ddb, 3, 1, MODE_SW, SEARCH_SCORE), 5),
+            "part_kernels": parts, "sw_x1_top10_s": top_s}
+    want_x0, want_top = outs["none"]
+    for name in ("mesh1", "mesh2"):
+        got_x0, got_top = outs[name]
+        check(np.array_equal(got_x0["score"], want_x0["score"]),
+              f"{name}: SW x0 scores differ from the search without a mesh")
+        check(sorted(got_top) == sorted(want_top) and all(
+            np.array_equal(got_top[k], want_top[k]) for k in want_top),
+            f"{name}: SW x1 top 10 differs from the search without a mesh")
+
+    # each part's kernels against their plain versions on its first block
+    eng2, ddb2, _ = layouts["mesh2"]
+    profile = eng2._backend.prepare_query(
+        matrix[query.astype(np.int64)].T, 3, 1)
+    mprof, seg_qs = multi_profile(
+        matrix, [query, query[:40], long_query(sm, 200, 200)[0]],
+        ddb2.device)
+    cases = bad = m_cases = m_bad = err = 0
+    for part in ddb2.parts:
+        blk = part.blocks[0]
+        sub = kernels.pack_stream([blk.letters], [blk.lengths],
+                                  ddb2.block_size, part.device)
+        for mode in range(4):
+            for x in (0, 1):
+                b_, e_ = compare(profile, sub, mode, x, 3, 1)
+                cases, bad, err = cases + 1, bad + b_, max(err, e_)
+        for x in (0, 1):
+            b_, e_ = compare(mprof, sub, MODE_SW, x, 3, 1, seg_qs)
+            m_cases, m_bad, err = m_cases + 1, m_bad + b_, max(err, e_)
+    check(bad == 0 and m_bad == 0, "a part's kernels disagree with their "
+          "plain versions")
+    res.update(sub_cases=cases, sub_mismatches=bad, multi_sub_cases=m_cases,
+               multi_sub_mismatches=m_bad, max_abs_err=err, tolerance=0)
+
+    # 3) a 16,000-residue query at x1 in panels, 2 parts against none
+    q16, _ = long_query(sm, 16_000, 16_000)
+    long = {}
+    for name in ("none", "mesh2"):
+        eng, ddb, _ = layouts[name]
+        kernels.reset_counts()
+        t = time.perf_counter()
+        out = search_database_arrays(q16, ddb, 3, 1, matrix, mode=MODE_SW,
+                                     search_type=SEARCH_SCORE_END,
+                                     engine=eng)
+        torch.cuda.synchronize()
+        long[name] = (time.perf_counter() - t, out,
+                      kernels.LAUNCHES["ragged_dp_panel"])
+    n_panels = len(kernels.plan_panels(len(q16)))
+    check(long["mesh2"][2] >= 2 * n_panels, "the 2-part mesh did not run "
+          "the long query's panels on both parts")
+    check(all(np.array_equal(long["mesh2"][1][k], long["none"][1][k])
+              for k in long["none"][1]),
+          "Q=16,000 SW x1: the 2-part mesh differs from no mesh")
+    res["q16000_x1"] = {name: {"search_s": s, "panel_launches": n}
+                        for name, (s, _, n) in long.items()}
+
+    # 4) two OS processes over gloo sharing the card: MultiHostSearch on 4
+    # FASTA shards of the database against one process's search
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mh_")
+    try:
+        paths = _fasta_shards(ascii_db, 4, tmp)
+        qpath = os.path.join(HERE, "tests", "port_data", "O74807.fasta")
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        out_base = os.path.join(tmp, "out.json")
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "opal_tpu_torch.parallel.multihost",
+             "--init-method", f"tcp://localhost:{port}", "--rank", str(r),
+             "--world-size", "2", "--query", qpath, "--out", out_base,
+             "--mesh", "2", *paths], cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        try:
+            errs = [p.communicate(timeout=300)[1] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        res["two_process_s"] = time.perf_counter() - t
+        for p, e in zip(procs, errs):
+            check(p.returncode == 0, f"multihost worker: {e[-2000:]}")
+        got = []
+        for r in range(2):
+            with open(f"{out_base}.{r}") as f:
+                got.append(json.load(f))
+        res["worker_launches"] = [g.pop("launches") for g in got]
+        check(all(w["ragged_dp"] > 0 for w in res["worker_launches"])
+              and not any(sum(g.pop("plain_calls").values()) for g in got),
+              "a worker did not launch ragged_dp on the card")
+        check(got[0] == got[1], "the two processes' results differ")
+        lut = sm.letter_index()
+        cuts = np.linspace(0, len(ascii_db), 5).astype(int)
+        want, full = [], {}
+        t = time.perf_counter()
+        for s in range(2):
+            shard = [lut[ascii_db[i]] for f in shard_for_process(
+                range(4), s, 2) for i in range(cuts[f], cuts[f + 1])]
+            rs = search_database(query, shard, 3, 1, matrix, mode=MODE_SW,
+                                 search_type=SEARCH_ALIGNMENT,
+                                 engine=srv.engine, align_top_k=5)
+            want += [(r.score, s, i) for i, r in enumerate(rs)]
+            full.update(((s, i), rs[i]) for i in range(len(rs)))
+        res["one_process_s"] = time.perf_counter() - t
+        want.sort(key=lambda w: (-w[0], w[1], w[2]))
+        r0 = got[0]
+        check(r0["sizes"] == [int(cuts[1] - cuts[0] + cuts[3] - cuts[2]),
+                              int(cuts[2] - cuts[1] + cuts[4] - cuts[3])],
+              "shard sizes")
+        check([tuple(r) for r in r0["ranked"]] == want[:10],
+              "two-process ranked top 10 (x0) differs from one process")
+        check([tuple(r[:3]) for r in r0["ranked_ends"]] == want[:10]
+              and all((eq, et) == (full[(s, i)].end_location_query,
+                                   full[(s, i)].end_location_target)
+                      for _, s, i, eq, et in r0["ranked_ends"]),
+              "two-process ranked top 10 (x1) differs from one process")
+        check([(w["score"], w["shard"], w["index"])
+               for w in r0["aligned"]] == want[:5], "aligned top 5 order")
+        for w in r0["aligned"]:
+            r = full[(w["shard"], w["index"])]
+            check((w["start_q"], w["start_t"], w["end_q"], w["end_t"],
+                   w["ops"]) == (r.start_location_query,
+                                 r.start_location_target,
+                                 r.end_location_query,
+                                 r.end_location_target,
+                                 None if r.alignment is None
+                                 else list(r.alignment)),
+                  f"aligned winner {w['shard']}/{w['index']} differs")
+        res["two_process"] = {"sizes": r0["sizes"],
+                              "top1": r0["ranked"][0], "matches": True}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 # The device fill's int32 work per in-band cell (csrc/device_fill.cu): E,
 # H', F, H and the column max by max (5 max-type instructions), and at
 # least 5 adds (H - go, E - ge, ul + P, H above - go, F - ge) and 5
@@ -2332,6 +2596,7 @@ def main():
     longq = phase_long_query(sm, srv, smi)
     fill = phase_device_fill(sm, srv, gold, ceil, smi,
                              ptxas_summary(log["device_fill"]["log"]))
+    mesh = phase_multi_device(sm, srv, ascii_db, smi)
 
     emit({"kernels": [{
         "name": "ragged_dp", "route": "cuda",
@@ -2340,11 +2605,14 @@ def main():
                     "build_pallas_ragged_fn_raw",
         "launches": main_res["launches"],
         "checked_cases": kern["cases"] + main_res["sub_cases"]
-        + kern_map["cases"],
+        + kern_map["cases"] + mesh["sub_cases"],
         "mismatches": kern["mismatches"] + main_res["sub_mismatches"]
-        + kern_map["mismatches"],
+        + kern_map["mismatches"] + mesh["sub_mismatches"],
         "max_abs_err": max(kern["max_abs_err"], main_res["max_abs_err"],
-                           kern_map["max_abs_err"]),
+                           kern_map["max_abs_err"], mesh["max_abs_err"]),
+        "mesh_launches": mesh["mesh2"]["launches"],
+        "mesh_ms": mesh["mesh2"]["kernel_ms"],
+        "mesh_at": "the main path in 2 parts on the card, both launches",
         "soak_trials": soak_res["trials"],
         "soak_failures": soak_res["failures"],
         "ms": main_res["kernel_ms"],
@@ -2362,11 +2630,12 @@ def main():
         "replaces": "opal_tpu/engine/pallas_kernels.py:1440:"
                     "build_pallas_multi_fn_raw",
         "launches": serve_res["launches"]["multi_dp"],
-        "checked_cases": kern_multi["cases"] + serve_res["sub_cases"],
+        "checked_cases": kern_multi["cases"] + serve_res["sub_cases"]
+        + mesh["multi_sub_cases"],
         "mismatches": kern_multi["mismatches"]
-        + serve_res["sub_mismatches"],
+        + serve_res["sub_mismatches"] + mesh["multi_sub_mismatches"],
         "max_abs_err": max(kern_multi["max_abs_err"],
-                           serve_res["max_abs_err"]),
+                           serve_res["max_abs_err"], mesh["max_abs_err"]),
         "ms": serve_res["multi_dp_group_ms"],
         "ms_at": f"one group of 8 queries ({sum(serve_res['group_segments'])}"
                  f" rows) x the whole database",

@@ -9,6 +9,12 @@ versions) with one protocol: prepare_query -> dispatch_many ->
 collect_many for one query, supports_multi -> dispatch_multi ->
 collect_multi for a group. Which one runs follows from the device the
 database lives on; nothing falls back from one to the other.
+
+A database is resident in parts (engine/device_db.py: one, or one per
+mesh device). Every part's launch is enqueued, on the part's device,
+before the first result is fetched; handles hold one entry per part (None
+for a part without blocks, which is never launched), and results join in
+block order.
 """
 from __future__ import annotations
 
@@ -46,15 +52,26 @@ class PanelRows:
     panels: tuple    # ((row0, rows), ...), kernels.plan_panels
 
 
-def finalize_handle(handle, ddb, mode, search_type, Q, with_flags=False):
-    """dispatch_many's handle -> {column: [NB, B] int32} on the device
-    (kernels.finalize_device, or the panel merge for a PanelRows)."""
+def finalize_handle(handle, part, mode, search_type, Q, with_flags=False):
+    """One part's entry of dispatch_many's handle -> {column: [NB, B]
+    int32} on the part's device (kernels.finalize_device, or the panel
+    merge for a PanelRows)."""
     if isinstance(handle, PanelRows):
         return kernels.finalize_panels_device(
-            handle.rows, handle.panels, ddb.stream.lengths, mode,
+            handle.rows, handle.panels, part.stream.lengths, mode,
             search_type, with_flags)
-    return kernels.finalize_device(handle, ddb.stream.lengths, mode,
+    return kernels.finalize_device(handle, part.stream.lengths, mode,
                                    search_type, Q, with_flags)
+
+
+def replicate(profile: torch.Tensor, ddb) -> dict:
+    """{device: the profile on it} for each distinct device of the
+    database's parts, one copy each (none on the profile's own device)."""
+    out = {profile.device: profile}
+    for part in ddb.parts:
+        if part.device not in out:
+            out[part.device] = profile.to(part.device)
+    return out
 
 
 class RaggedBackend:
@@ -93,67 +110,81 @@ class RaggedBackend:
                                   max_len))
 
     def prepare_query(self, qprofile: np.ndarray, gap_open, gap_ext):
-        """qprofile [A, Q] -> the kernel's [Q, W] int32 profile on device."""
+        """qprofile [A, Q] -> the kernel's [Q, W] int32 profile on the
+        engine's device (dispatch replicates it to the parts' devices)."""
         return torch.from_numpy(kernels.build_profile(qprofile)).to(
             self.device)
 
     def dispatch_many(self, profile, ddb, gap_open, gap_ext, mode,
                       search_type, with_flags=False):
-        """Enqueue the whole database; returns the handle: the device
-        tracker rows (with the overflow-flag rows when with_flags), or a
-        PanelRows for a query taller than kernels.PANEL_ROWS (the row
-        count alone decides: the card has no VMEM gate)."""
-        if not ddb.blocks:
-            return None
-        args = (profile, ddb.stream, mode, search_type, int(gap_open),
-                int(gap_ext), with_flags)
-        if profile.shape[0] > kernels.PANEL_ROWS:
-            panels = kernels.plan_panels(profile.shape[0])
-            return PanelRows(kernels.ragged_panel_score(*args,
-                                                        panels=panels),
-                             panels)
-        return kernels.ragged_score(*args)
+        """Enqueue the whole database, part by part; returns the handle,
+        per part: the device tracker rows (with the overflow-flag rows
+        when with_flags), a PanelRows for a query taller than
+        kernels.PANEL_ROWS (the row count alone decides: the card has no
+        VMEM gate), or None for a part without blocks."""
+        profiles = replicate(profile, ddb)
+        panels = (kernels.plan_panels(profile.shape[0])
+                  if profile.shape[0] > kernels.PANEL_ROWS else None)
+        handle = []
+        for part in ddb.parts:
+            args = (profiles[part.device], part.stream, mode, search_type,
+                    int(gap_open), int(gap_ext), with_flags)
+            if not part.blocks:
+                handle.append(None)
+            elif panels is not None:
+                handle.append(PanelRows(
+                    kernels.ragged_panel_score(*args, panels=panels),
+                    panels))
+            else:
+                handle.append(kernels.ragged_score(*args))
+        return handle
 
     def collect_many(self, handle, ddb, mode, search_type, Q,
                      with_flags=False):
-        """Finalize the handle's rows on the device, then one device->host
-        copy; returns [(Block, {col: [n] array}), ...] over all DB
-        blocks (the flag columns too when with_flags)."""
-        if handle is None:
-            return []
-        cols = finalize_handle(handle, ddb, mode, search_type, Q, with_flags)
-        host = torch.stack(list(cols.values()), dim=1).cpu().numpy()
-        return [(blk, {k: host[bi, j, :blk.n] for j, k in enumerate(cols)})
-                for bi, blk in enumerate(ddb.blocks)]
+        """Finalize each part's rows on its device, then one device->host
+        copy per part; returns [(Block, {col: [n] array}), ...] over all
+        DB blocks in block order (the flag columns too when with_flags)."""
+        finals = [(part, finalize_handle(h, part, mode, search_type, Q,
+                                         with_flags))
+                  for h, part in zip(handle, ddb.parts) if h is not None]
+        out = []
+        for part, cols in finals:
+            host = torch.stack(list(cols.values()), dim=1).cpu().numpy()
+            out += [(blk, {k: host[bi, j, :blk.n]
+                           for j, k in enumerate(cols)})
+                    for bi, blk in enumerate(part.blocks)]
+        return out
 
     def dispatch_multi(self, qprofiles, ddb, gap_open, gap_ext, mode,
                        search_type):
         """Enqueue one stacked pass of the group (qprofile [A, Q_s] each;
-        the caller has checked supports_multi). Returns the handle
-        (rows or None, seg_qs, mode, track_end); rows stay on the device."""
+        the caller has checked supports_multi), part by part. Returns the
+        handle ([rows or None per part], seg_qs, mode, track_end); rows
+        stay on their part's device."""
         profile, seg_qs = kernels.prepare_profile_multi(qprofiles)
-        track_end = search_type != SEARCH_SCORE
-        if not ddb.blocks:
-            return (None, seg_qs, mode, track_end)
-        rows = kernels.multi_score(
-            torch.from_numpy(profile).to(self.device), seg_qs, ddb.stream,
-            mode, search_type, int(gap_open), int(gap_ext))
-        return (rows, seg_qs, mode, track_end)
+        profiles = replicate(torch.from_numpy(profile).to(self.device), ddb)
+        rows = [kernels.multi_score(
+            profiles[part.device], seg_qs, part.stream, mode, search_type,
+            int(gap_open), int(gap_ext)) if part.blocks else None
+            for part in ddb.parts]
+        return (rows, seg_qs, mode, search_type != SEARCH_SCORE)
 
     def collect_multi(self, handle, ddb):
-        """One device->host copy of the group's rows; returns per-query
-        lists of (Block, {col: [n] array}) pairs (score[, end_q, end_t])."""
+        """One device->host copy of the group's rows per part; returns
+        per-query lists of (Block, {col: [n] array}) pairs (score[, end_q,
+        end_t]) in block order."""
         rows, seg_qs, _, track_end = handle
         n_q = len(seg_qs)
         result = [[] for _ in range(n_q)]
-        if rows is None:
-            return result
-        tr = rows.cpu().numpy()
-        for bi, blk in enumerate(ddb.blocks):
-            for s in range(n_q):
-                cols = {"score": tr[bi, s, :blk.n]}
-                if track_end:
-                    cols["end_q"] = tr[bi, n_q + s, :blk.n]
-                    cols["end_t"] = tr[bi, 2 * n_q + s, :blk.n]
-                result[s].append((blk, cols))
+        for part_rows, part in zip(rows, ddb.parts):
+            if part_rows is None:
+                continue
+            tr = part_rows.cpu().numpy()
+            for bi, blk in enumerate(part.blocks):
+                for s in range(n_q):
+                    cols = {"score": tr[bi, s, :blk.n]}
+                    if track_end:
+                        cols["end_q"] = tr[bi, n_q + s, :blk.n]
+                        cols["end_t"] = tr[bi, 2 * n_q + s, :blk.n]
+                    result[s].append((blk, cols))
         return result

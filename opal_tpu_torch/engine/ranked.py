@@ -9,7 +9,7 @@ ascending (reference: src/opal.h:44-74). Selection is exact:
    (kernels.finalize_device, or the panel merge of a long query;
    multi_dp emits final values already);
 2. padding lanes are masked through the per-lane DB index
-   (DeviceDatabase.lane_indices, -1 = padding);
+   (each part's Part.lane_indices, -1 = padding);
 3. ``s_k = topk(score, k)[k-1]``, then two more topk calls emit a SUPERSET
    of the exact top k: the entries with score > s_k (at most k-1) and the
    k smallest-index entries with score == s_k. Their keys are -index, which
@@ -18,8 +18,11 @@ ascending (reference: src/opal.h:44-74). Selection is exact:
    (-score, index) and keeps k.
 
 The candidates of one query come back as one packed [n_cols, 2k] int32
-tensor (rows db, score, valid[, end_q, end_t]); those of a stacked group
-in one copy for the whole group.
+tensor per database part (rows db, score, valid[, end_q, end_t]); those of
+a stacked group in one copy per part for the whole group. Each part
+selects on its own device; the superset property composes by plain union,
+so merging the parts' candidates gives the exact global top k (as
+opal_tpu merges its mesh shards, opal_tpu/engine/ranked.py:23-26).
 """
 from __future__ import annotations
 
@@ -86,34 +89,39 @@ def merge_candidates(parts, k, track_end):
 
 def topk_from_handle(handle, ddb, mode, search_type, Q, k):
     """The ranked top k of one query from its live handle
-    (backend.dispatch_many's: ragged_score's tracker rows, or a long
-    query's panel rows, merged here on the device; None for an empty
-    database): one selection on the device and one copy of the
-    candidates. opal_tpu ranks panel results on the host; the output is
-    the same."""
-    track_end = search_type != SEARCH_SCORE
-    if handle is None:
-        return merge_candidates([], k, track_end)
-    cols = finalize_handle(handle, ddb, mode, search_type, Q)
-    cand = select_topk(cols["score"], cols.get("end_q"), cols.get("end_t"),
-                       ddb.lane_indices, k)
-    return merge_candidates([cand.cpu().numpy()], k, track_end)
+    (backend.dispatch_many's, per part: ragged_score's tracker rows, or a
+    long query's panel rows, merged here on the device; None for a part
+    without blocks): one selection per part on its device, one copy of
+    each part's candidates, merged on the host. opal_tpu ranks panel
+    results on the host; the output is the same."""
+    cands = []
+    for h, part in zip(handle, ddb.parts):
+        if h is None:
+            continue
+        cols = finalize_handle(h, part, mode, search_type, Q)
+        cands.append(select_topk(cols["score"], cols.get("end_q"),
+                                 cols.get("end_t"), part.lane_indices, k))
+    return merge_candidates([c.cpu().numpy() for c in cands], k,
+                            search_type != SEARCH_SCORE)
 
 
 def topk_from_multi_handle(handle, ddb, k):
     """The ranked top k of each query of a stacked group from its live
     multi_score rows (see backend.dispatch_multi): one selection per
-    segment on the device, one copy of all the candidates. Returns one
-    ranked dict per query."""
-    tr, seg_qs, _, track_end = handle
+    segment and part on the part's device, one copy of each part's
+    candidates for the whole group. Returns one ranked dict per query."""
+    rows, seg_qs, _, track_end = handle
     n_q = len(seg_qs)
-    if tr is None:
-        return [merge_candidates([], k, track_end) for _ in range(n_q)]
-    db_idx = ddb.lane_indices
-    cands = []
-    for s in range(n_q):
-        ends = ((tr[:, n_q + s], tr[:, 2 * n_q + s]) if track_end
-                else (None, None))
-        cands.append(select_topk(tr[:, s], *ends, db_idx, k))
-    out = torch.stack(cands).cpu().numpy()  # [n_q, n_cols, 2k]
-    return [merge_candidates([out[s]], k, track_end) for s in range(n_q)]
+    per_part = []
+    for tr, part in zip(rows, ddb.parts):
+        if tr is None:
+            continue
+        cands = []
+        for s in range(n_q):
+            ends = ((tr[:, n_q + s], tr[:, 2 * n_q + s]) if track_end
+                    else (None, None))
+            cands.append(select_topk(tr[:, s], *ends, part.lane_indices, k))
+        per_part.append(torch.stack(cands))  # [n_q, n_cols, 2k]
+    outs = [c.cpu().numpy() for c in per_part]
+    return [merge_candidates([o[s] for o in outs], k, track_end)
+            for s in range(n_q)]

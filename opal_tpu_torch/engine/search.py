@@ -21,7 +21,10 @@ and reports in last_search_stats which reference precision each sequence
 needed (engine/cascade.py).
 
 Every entry point runs on the engine's device, "cuda" unless the caller
-asks for "cpu"; without CUDA the default engine raises.
+asks for "cpu"; without CUDA the default engine raises. With a mesh
+(EngineConfig.mesh, parallel/shard.py's db_mesh) the resident database is
+in one part per mesh device, each scored on its own device, and the
+engine's device is the mesh's first (where x2's device fill runs).
 """
 from __future__ import annotations
 
@@ -96,6 +99,8 @@ class EngineConfig:
     # "int32", or "adaptive": search_database also reports which reference
     # precision (8, 16 or 32 bits) each sequence needed (last_search_stats)
     precision: str = "int32"
+    # a parallel.shard.Mesh: the database in one part per mesh device
+    mesh: object = None
 
 
 class Engine:
@@ -104,7 +109,14 @@ class Engine:
         if self.config.precision not in ("int32", "adaptive"):
             raise ValueError(f"precision={self.config.precision!r}: "
                              "'int32' or 'adaptive'")
-        self.device = resolve_device(self.config.device)
+        mesh = self.config.mesh
+        if mesh is None:
+            self.device = resolve_device(self.config.device)
+        else:
+            self.device = mesh.devices[0]
+            if torch.device(self.config.device).type != self.device.type:
+                raise ValueError(f"device={self.config.device!r}, the mesh "
+                                 f"is on {self.device.type}")
         self.last_search_stats: Optional[dict] = None
         self._backend = RaggedBackend(self.device)
         # Bounded LRU of resident DeviceDatabases (most-recent last)
@@ -112,8 +124,10 @@ class Engine:
             collections.OrderedDict())
 
     def upload(self, db: Sequence[np.ndarray]) -> DeviceDatabase:
-        """Upload the DB to the device once (resident-database mode)."""
-        return DeviceDatabase(db, self.config.block_size, self.device)
+        """Upload the DB to the device once (resident-database mode), in
+        one part per mesh device with a mesh."""
+        return DeviceDatabase(db, self.config.block_size, self.device,
+                              self.config.mesh)
 
     def _get_resident(self, db) -> DeviceDatabase:
         if isinstance(db, DeviceDatabase):
@@ -126,7 +140,7 @@ class Engine:
         key = (id(db), _db_fingerprint(db))
         cached = self._resident_cache.get(key)
         if cached is None:
-            cached = DeviceDatabase(db, self.config.block_size, self.device)
+            cached = self.upload(db)
             self._resident_cache[key] = cached
             while len(self._resident_cache) > _RESIDENT_LRU_SIZE:
                 self._resident_cache.popitem(last=False)
@@ -164,10 +178,10 @@ class Engine:
             ddb = self._get_resident(db)
             index_map = None
         else:
-            # partial rescoring (skip semantics): ad-hoc upload
+            # partial rescoring (skip semantics): ad-hoc upload, over the
+            # mesh too
             index_map = np.fromiter(subset, dtype=np.int64)
-            ddb = DeviceDatabase([db_list[i] for i in index_map],
-                                 self.config.block_size, self.device)
+            ddb = self.upload([db_list[i] for i in index_map])
         absmax = int(np.abs(qprofile).max()) if Q else 0
         if not backend.supports(Q, gap_open, gap_ext, A, absmax,
                                 ddb.max_len):

@@ -53,7 +53,7 @@ GROUPS = (
 NO_LIMIT = 1 << 27
 
 
-def edge_groups(matrix, seed=9, device="cpu"):
+def edge_groups(matrix, seed=9, device="cuda"):
     """[(name, mode, go, ge, jobs)]: each group's lanes as pack_group's jobs
     (index, limit, aq, at, bottom, top), their limits set from the plain
     version on `device` (exact int32: the same on every device)."""

@@ -616,3 +616,87 @@ def test_fill_build_failure_raises(cuda, monkeypatch):
     mat = torch.zeros((4, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         device_fill.fill_walk(aq, aq, z, z, z, z, z, 3, 1, mat, MODE_SW)
+
+
+def _mesh_problem(seed, n=700, max_len=300):
+    rng = np.random.default_rng(seed)
+    matrix = ScoreMatrix.blosum50().matrix
+    db = [rng.integers(0, 24, size=int(L)).astype(np.uint8)
+          for L in rng.integers(1, max_len, size=n)]
+    return rng, matrix, db
+
+
+@pytest.mark.parametrize("x", [0, 1])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_mesh_search_on_card_matches_unsharded(cuda, mode, x):
+    """A 2-part mesh on the one card (each part its own ragged_dp launch)
+    against the unsharded engine, every column."""
+    from opal_tpu_torch.parallel.shard import db_mesh
+
+    rng, matrix, db = _mesh_problem(10 + mode)
+    query = rng.integers(0, 24, size=90).astype(np.uint8)
+    eng = Engine(device="cuda", block_size=128,
+                 mesh=db_mesh(["cuda", "cuda"]))
+    ddb = eng.upload(db)
+    assert [bool(p.blocks) for p in ddb.parts] == [True, True]
+    before = kernels.LAUNCHES["ragged_dp"]
+    got = search_database_arrays(query, ddb, 3, 1, matrix, mode=mode,
+                                 search_type=x, engine=eng)
+    assert kernels.LAUNCHES["ragged_dp"] - before >= 2
+    want = search_database_arrays(query, db, 3, 1, matrix, mode=mode,
+                                  search_type=x,
+                                  engine=Engine(device="cuda",
+                                                block_size=128))
+    assert sorted(got) == sorted(want)
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("x", [0, 1])
+def test_mesh_panels_multi_topk_on_card(cuda, monkeypatch, x):
+    """On a 2-part mesh on the card: a query in 32-row panels, a stacked
+    group of 3 (multi_dp per part) and the top 10 selected per part, all
+    equal to the unsharded engine."""
+    from opal_tpu_torch.parallel.shard import db_mesh
+
+    monkeypatch.setattr(kernels, "PANEL_ROWS", 32)
+    rng, matrix, db = _mesh_problem(20 + x)
+    eng = Engine(device="cuda", block_size=128,
+                 mesh=db_mesh(["cuda", "cuda"]))
+    ref = Engine(device="cuda", block_size=128)
+    ddb = eng.upload(db)
+    tall = rng.integers(0, 24, size=100).astype(np.uint8)
+    short = [rng.integers(0, 24, size=q).astype(np.uint8)
+             for q in (20, 31, 12)]
+    before = dict(kernels.LAUNCHES)
+    runs = []
+    for e, d in ((eng, ddb), (ref, db)):
+        runs.append((
+            search_database_arrays(tall, d, 3, 1, matrix, mode=MODE_SW,
+                                   search_type=x, engine=e),
+            search_database_multi_arrays(short, d, 3, 1, matrix,
+                                         mode=MODE_OV, search_type=x,
+                                         engine=e),
+            search_database_multi_arrays(short + [tall], d, 3, 1, matrix,
+                                         mode=MODE_SW, search_type=x,
+                                         engine=e, top_k=10)))
+        if e is eng:
+            assert kernels.LAUNCHES["ragged_dp_panel"] \
+                - before["ragged_dp_panel"] >= 2 * 4
+            assert kernels.LAUNCHES["multi_dp"] - before["multi_dp"] >= 4
+    (p0, m0, t0), (p1, m1, t1) = runs
+    for g, w in zip([p0] + m0 + t0, [p1] + m1 + t1):
+        assert sorted(g) == sorted(w)
+        for k in g:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+def test_dryrun_on_card(cuda, capsys):
+    """The dry run over a 2-device mesh on the card (the card named
+    twice when it is the only one)."""
+    from opal_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(2)
+    assert out["live_parts"] == 2
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith(
+        "dryrun_multichip(2): OK")

@@ -32,7 +32,8 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def groups():
     matrix = JaxScoreMatrix.blosum50().matrix
-    return matrix, {g[0]: g for g in fill_shapes.edge_groups(matrix)}
+    return matrix, {g[0]: g for g in fill_shapes.edge_groups(
+        matrix, device="cpu")}
 
 
 @pytest.mark.parametrize("name", [g[0] for g in fill_shapes.GROUPS])

@@ -53,7 +53,11 @@ def test_package_import_pulls_in_no_jax():
             "opal_tpu_torch.tools.exp_sstack_ablate, "
             "opal_tpu_torch.tools.exp_device_fill, "
             "opal_tpu_torch.tools.fill_shapes, "
+            "opal_tpu_torch.tools.scaling_bench, "
             "opal_tpu_torch.engine.device_fill; "
+            "import opal_tpu_torch.parallel.shard, "
+            "opal_tpu_torch.parallel.multihost, "
+            "opal_tpu_torch.parallel.dryrun; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'opal_tpu')))")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -77,6 +81,21 @@ def test_default_engine_needs_cuda(monkeypatch):
     with pytest.raises(ValueError):
         search.Engine(device="mps")
     assert search.Engine(device="cpu").device == torch.device("cpu")
+
+
+def test_default_mesh_needs_cuda(monkeypatch):
+    """db_mesh() and the dry run default to the CUDA devices and raise
+    without them; a CPU mesh is asked for by name."""
+    from opal_tpu_torch.parallel import dryrun, shard
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shard.db_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shard.db_mesh(["cuda:0"])
+    assert shard.db_mesh(["cpu"]).devices == (torch.device("cpu"),)
 
 
 def test_chip_smoke_refuses_without_the_card_or_the_repo(tmp_path):

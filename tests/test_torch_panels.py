@@ -326,7 +326,7 @@ def test_long_query_routing(monkeypatch):
     be = eng._backend
     for Q, panel in ((32, False), (33, True)):
         prof = be.prepare_query(matrix[rng.integers(0, 4, size=Q)].T, 3, 1)
-        h = be.dispatch_many(prof, ddb, 3, 1, MODE_SW, SEARCH_SCORE)
+        (h,) = be.dispatch_many(prof, ddb, 3, 1, MODE_SW, SEARCH_SCORE)
         assert isinstance(h, backend.PanelRows) == panel
         if panel:
             assert h.panels == ((0, 32), (32, 1))

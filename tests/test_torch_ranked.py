@@ -114,8 +114,9 @@ def test_lane_indices_cached_on_the_database():
     db = [rng.integers(0, 20, size=int(n)).astype(np.uint8)
           for n in rng.integers(1, 40, size=21)]
     ddb = DeviceDatabase(db, 8, "cpu")
-    lanes = ddb.lane_indices
-    assert lanes is ddb.lane_indices
+    (part,) = ddb.parts
+    lanes = part.lane_indices
+    assert lanes is part.lane_indices
     assert lanes.shape == (len(ddb.blocks), 8) and lanes.dtype == torch.int32
     for bi, blk in enumerate(ddb.blocks):
         np.testing.assert_array_equal(lanes[bi, :blk.n].numpy(),
