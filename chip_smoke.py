@@ -107,8 +107,27 @@ the last line:
              opal_tpu_torch.parallel.multihost on 4 FASTA shards of the
              database, a 2-part mesh each): ranked top 10 at x0 and x1 and
              search_aligned top 5, equal to one process's search.
+16. host_tools - the ten host tools of opal_tpu_torch.tools, each through
+             its run(...) at its protocol on the card, the resident
+             database of phase 6 where the tool reads the 541,762
+             sequences: serve_qps (8 clients x 12 unique 110-residue
+             queries, batching window 0.004 s against 0, identical
+             answers; its curve cut to 1 and 16 clients), serve_latency
+             (8 warm requests, without and with align, the card's idle
+             share over the warm ones from a torch.profiler trace), one
+             request after a 20 s idle gap without and with
+             Server.start_keepalive(5), exp_x1_gap (P18080 and O74807 in 4
+             modes, the x1 search split at each synchronize), exp_topk,
+             exp_align_topk (top 1,000 of a 513-residue query), perf (4
+             modes x 2 queries and stacked), tb_scaling (4,000 pairs at 1,
+             2 and 4 workers, identical), exp_panel_mesh, exp_panels (5
+             query lengths up to 100,000, panels against one sweep and the
+             plain version) and exp_panel_rows (6 heights, best of 4); each
+             tool's equality checks, and the kernels it launched
+             (kernels.LAUNCHES) beside its numbers.
 
-Then the kernels line and the last line {"ok": true, "device": {...}}.
+Then the run's seconds, the kernels line and the last line
+{"ok": true, "device": {...}}.
 Needs CUDA, nvcc and the repository checkout around this file; imports
 nothing of JAX or opal_tpu.
 """
@@ -2194,6 +2213,174 @@ def phase_multi_device(sm, srv, ascii_db, smi):
     return res
 
 
+# kernels each host tool must have launched in its run (tb_scaling runs
+# on the host only)
+TOOL_KERNELS = {
+    "serve_qps": ("ragged_dp", "multi_dp"),
+    "serve_latency": ("ragged_dp",),
+    "serve_latency_align": ("ragged_dp",),
+    "exp_x1_gap": ("ragged_dp",),
+    "exp_topk": ("ragged_dp",),
+    "exp_align_topk": ("ragged_dp",),
+    "perf": ("ragged_dp", "multi_dp"),
+    "tb_scaling": (),
+    "exp_panel_mesh": ("ragged_dp_panel",),
+    "exp_panels": ("ragged_dp_panel", "ragged_dp"),
+    "exp_panel_rows": ("ragged_dp_panel",),
+}
+# seconds the card is left idle before one request, without and with the
+# keepalive (beating every KEEPALIVE_S)
+IDLE_GAP_S, KEEPALIVE_S = 20.0, 5.0
+# the host tools' own protocol sizes where they bring their own data
+TOOL_SIZES = {"tb_pairs": 4000, "mesh_q": 16000, "mesh_seqs": 3000,
+              "panel_seqs": 8000, "panel_qlens": (6000, 16000, 34000, 65000,
+                                                  100000),
+              "rows_q": 16000}
+
+
+def phase_host_tools(sm, srv, smi):
+    """The ten host tools of opal_tpu_torch.tools on the resident database
+    (see the module docstring, phase 16)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.profiler as tp
+
+    from opal_tpu_torch.engine import kernels
+    from opal_tpu_torch.engine.search import Engine
+    from opal_tpu_torch.fasta import read_fasta_file
+    from opal_tpu_torch.tools import (exp_align_topk, exp_panel_mesh,
+                                      exp_panel_rows, exp_panels, exp_topk,
+                                      exp_x1_gap, perf, port_query,
+                                      serve_latency, serve_qps, tb_scaling)
+
+    t_phase = time.perf_counter()
+    lut = sm.letter_index()
+    engine, ddb, dev = srv.engine, srv.ddb, srv.engine.device
+    res = {"phase": "host_tools", "card": smi, "tools": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_host_tools_")
+
+    def tool(name, fn):
+        kernels.reset_counts()
+        t = time.perf_counter()
+        out = fn()
+        out.pop("answers", None)
+        out["tool_s"] = time.perf_counter() - t
+        out["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        out["plain_calls"] = {k: v for k, v in kernels.PLAIN_CALLS.items()
+                              if v}
+        for k in TOOL_KERNELS[name]:
+            check(out["launches"].get(k, 0) > 0,
+                  f"{name} launched no {k}")
+        if name != "exp_panels":  # its --check runs the plain version
+            check(not out["plain_calls"], f"{name} ran a plain version")
+        res["tools"][name] = out
+        return out
+
+    try:
+        qps = tool("serve_qps", lambda: serve_qps.run(
+            srv, clients=8, reqs=12, qlen=110, window=0.004, curve=[1, 16]))
+        check(qps["identical"], "serve_qps: batched differs from serial")
+
+        trace = os.path.join(tmp, "serve_latency.json")
+
+        def profiled():
+            prof = tp.profile(activities=[tp.ProfilerActivity.CPU,
+                                          tp.ProfilerActivity.CUDA])
+
+            class Around:
+                def __enter__(self):
+                    prof.start()
+
+                def __exit__(self, *exc):
+                    prof.stop()
+                    prof.export_chrome_trace(trace)
+
+            return Around()
+
+        lat = tool("serve_latency", lambda: serve_latency.run(
+            srv, qlen=110, top_k=10, reps=8, around=profiled))
+        lat.update(idle_share(trace))
+        tool("serve_latency_align", lambda: serve_latency.run(
+            srv, qlen=110, top_k=10, reps=8, align=True))
+
+        # one request after an idle gap, without and with the keepalive
+        alpha = sm.alphabet
+        wake = serve_qps.random_queries(np.random.default_rng(20), alpha, 4,
+                                        110)
+        tcp = serve_qps.start_server(srv, 0.0)
+        try:
+            c, f = serve_qps.connect(tcp.server_address[1])
+            with c:
+                def ask(q):
+                    dt, r = serve_qps.request(
+                        f, {"id": 0, "query": q, "top_k": 10})
+                    check(len(r.get("hits", ())) == 10,
+                          f"idle-wake request failed: {r}")
+                    return dt * 1e3
+
+                warm_ms = [ask(q) for q in wake[:2]]
+                time.sleep(IDLE_GAP_S)
+                off_ms = ask(wake[2])
+                stop = srv.start_keepalive(KEEPALIVE_S)
+                try:
+                    time.sleep(IDLE_GAP_S)
+                    on_ms = ask(wake[3])
+                finally:
+                    stop()
+        finally:
+            tcp.close()
+        res["idle_wake"] = {
+            "gap_s": IDLE_GAP_S, "keepalive_interval_s": KEEPALIVE_S,
+            "warm_median_ms": lat["median_ms"], "warm_now_ms": warm_ms,
+            "after_gap_keepalive_off_ms": off_ms,
+            "after_gap_keepalive_on_ms": on_ms}
+
+        queries = {q: port_query(q, lut) for q in ("P18080", "O74807")}
+        tool("exp_x1_gap", lambda: exp_x1_gap.run(
+            engine, ddb, queries, sm.matrix, repeats=3))
+        tool("exp_topk", lambda: exp_topk.run(engine, ddb, sm.matrix,
+                                              top_k=10, reps=4))
+        tool("exp_align_topk", lambda: exp_align_topk.run(
+            engine, ddb, sm.matrix, top_k=1000, qlen=513))
+        tool("perf", lambda: perf.run(
+            engine, ddb, {q: port_query(q, lut) for q in ("O74807",
+                                                          "P18080")},
+            sm.matrix, repeats=3, multi=True))
+        gold_db, _ = read_fasta_file(
+            os.path.join(HERE, "tests", "data", "synth12071.fasta.gz"), lut)
+        tool("tb_scaling", lambda: tb_scaling.run(
+            queries["P18080"], gold_db, tb_scaling.golden_x1("P18080", "SW"),
+            sm.matrix, "SW", (1, 2, 4), TOOL_SIZES["tb_pairs"], dev))
+
+        mq, mdb, mm = exp_panel_mesh.mesh_inputs(TOOL_SIZES["mesh_q"],
+                                                 TOOL_SIZES["mesh_seqs"])
+        tool("exp_panel_mesh", lambda: exp_panel_mesh.run(
+            dev, mdb, mq, mm, reps=3))
+        # exp_panels' and exp_panel_rows' database (each tool draws its
+        # queries from the generator that drew it)
+        pdb, pm, rng = exp_panels.panel_inputs(TOOL_SIZES["panel_seqs"])
+        pengine = Engine(device=str(dev), block_size=1024)
+        pddb = pengine.upload(pdb)
+        pqs = {q: rng.integers(0, exp_panels.A, q, dtype=np.uint8)
+               for q in TOOL_SIZES["panel_qlens"]}
+        tool("exp_panels", lambda: exp_panels.run(
+            pengine, pddb, pqs, pm, reps=2, check=True))
+        rng = exp_panels.panel_inputs(TOOL_SIZES["panel_seqs"])[2]
+        rq = rng.integers(0, exp_panels.A, TOOL_SIZES["rows_q"],
+                          dtype=np.uint8)
+        tool("exp_panel_rows", lambda: exp_panel_rows.run(
+            pengine, pddb, rq, pm, reps=4))
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 # The device fill's int32 work per in-band cell (csrc/device_fill.cu): E,
 # H', F, H and the column max by max (5 max-type instructions), and at
 # least 5 adds (H - go, E - ge, ul + P, H above - go, F - ge) and 5
@@ -2532,6 +2719,7 @@ def idle_share(trace_path):
 
 
 def main():
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "opal_tpu_torch")):
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
@@ -2597,6 +2785,8 @@ def main():
     fill = phase_device_fill(sm, srv, gold, ceil, smi,
                              ptxas_summary(log["device_fill"]["log"]))
     mesh = phase_multi_device(sm, srv, ascii_db, smi)
+    phase_host_tools(sm, srv, smi)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     emit({"kernels": [{
         "name": "ragged_dp", "route": "cuda",

@@ -10,6 +10,10 @@ Importing the package builds nothing and touches no device: the search API
 below loads lazily, and the kernel compiles at its first launch.
 """
 from .constants import (  # noqa: F401
+    ALIGN_DEL,
+    ALIGN_INS,
+    ALIGN_MATCH,
+    ALIGN_MISMATCH,
     MODE_HW,
     MODE_NW,
     MODE_OV,

@@ -6,6 +6,7 @@ line by line in Python) and the banded traceback of the alignment pass
 (traceback.find_alignment's hot path). They compile with the system C
 compiler at first use into `_build/` beside this file (git-ignored), one
 library named after a hash of the sources. Where no C compiler works,
+or OPAL_TPU_NO_NATIVE is set when the library would first load,
 `available()` is false and callers take the pure-Python paths, which give
 identical output.
 """
@@ -89,10 +90,11 @@ def _get_lib():
     with _lock:
         if not _tried:
             _tried = True
-            try:
-                _lib = _build_and_load()
-            except OSError:  # a library that does not load
-                _lib = None
+            if not os.environ.get("OPAL_TPU_NO_NATIVE"):
+                try:
+                    _lib = _build_and_load()
+                except OSError:  # a library that does not load
+                    _lib = None
     return _lib
 
 
@@ -118,7 +120,8 @@ _work = _WorkBuffers()
 # storage: keep every ck-th column (ck ~ sqrt(T)), re-derive ck-column
 # blocks during the backtrace — O(band * sqrt(T)) memory, bit-identical
 # outputs, at most one extra fill's worth of recompute. 32M cells = 384 MB
-# of full-store matrices at the threshold.
+# of full-store matrices at the threshold. OPAL_TPU_TB_FULL_CELLS, read at
+# each call, replaces it.
 FULL_CELLS = 32_000_000
 
 
@@ -140,8 +143,9 @@ def find_alignment_native(query, target, go, ge, matrix, score_limit, mode,
         rows, step, off = W, 1, int(top)
     else:
         rows, step, off = Q, 0, 0
+    full_cells = int(os.environ.get("OPAL_TPU_TB_FULL_CELLS", FULL_CELLS))
     ck = 0
-    if rows * T > FULL_CELLS:
+    if rows * T > full_cells:
         ck = max(1, math.isqrt(T - 1) + 1)  # ceil(sqrt(T))
     if ck:
         need = rows * ck

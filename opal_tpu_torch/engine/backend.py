@@ -10,6 +10,13 @@ collect_many for one query, supports_multi -> dispatch_multi ->
 collect_multi for a group. Which one runs follows from the device the
 database lives on; nothing falls back from one to the other.
 
+Three environment knobs of opal_tpu, read at each dispatch, steer the
+route of one query (panel_plan) and never its result:
+OPAL_TPU_FORCE_PANELS=1 runs every single-query search in panels,
+OPAL_TPU_NO_PANELS=1 runs a query of any height in one sweep (it wins over
+FORCE_PANELS, as in opal_tpu), and OPAL_TPU_PANEL_ROWS=<n> sets the panel
+height in place of kernels.PANEL_ROWS, which stays the threshold.
+
 A database is resident in parts (engine/device_db.py: one, or one per
 mesh device). Every part's launch is enqueued, on the part's device,
 before the first result is fetched; handles hold one entry per part (None
@@ -19,6 +26,7 @@ block order.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -50,6 +58,40 @@ class PanelRows:
     """A long query's live result: one tracker-row tensor per panel."""
     rows: list
     panels: tuple    # ((row0, rows), ...), kernels.plan_panels
+
+
+def panels_forced() -> bool:
+    return (os.environ.get("OPAL_TPU_FORCE_PANELS") == "1"
+            and os.environ.get("OPAL_TPU_NO_PANELS") != "1")
+
+
+def panel_rows() -> int:
+    """The panel height: OPAL_TPU_PANEL_ROWS, else kernels.PANEL_ROWS.
+    A height that is not a positive multiple of kernels.STRIP_ROWS
+    raises."""
+    env = os.environ.get("OPAL_TPU_PANEL_ROWS")
+    if not env:
+        return kernels.PANEL_ROWS
+    try:
+        rows = int(env)
+    except ValueError:
+        rows = 0
+    if rows < kernels.STRIP_ROWS or rows % kernels.STRIP_ROWS:
+        raise ValueError(f"OPAL_TPU_PANEL_ROWS={env!r}: a panel is a "
+                         f"positive number of whole {kernels.STRIP_ROWS}-row "
+                         "strips")
+    return rows
+
+
+def panel_plan(Q: int):
+    """The panels ((row0, rows), ...) a Q-row query runs in, or None for
+    one sweep: panels when it is taller than kernels.PANEL_ROWS or
+    OPAL_TPU_FORCE_PANELS=1, one sweep under OPAL_TPU_NO_PANELS=1."""
+    if os.environ.get("OPAL_TPU_NO_PANELS") == "1":
+        return None
+    if Q <= kernels.PANEL_ROWS and not panels_forced():
+        return None
+    return kernels.plan_panels(Q, panel_rows())
 
 
 def finalize_handle(handle, part, mode, search_type, Q, with_flags=False):
@@ -99,10 +141,13 @@ class RaggedBackend:
         """Can these queries run as one stacked multi_dp launch? At most
         MULTI_MAX_SEGS of them, each within `supports` (the tallest decides
         the value bound) and none taller than kernels.PANEL_ROWS: a long
-        query runs alone, in panels, as in opal_tpu. Any gap pair: the
-        kernel's F chain is exact for all of them. The grouping decides
-        launches only, never results."""
+        query runs alone, in panels, as in opal_tpu (in one sweep under
+        OPAL_TPU_NO_PANELS). Under OPAL_TPU_FORCE_PANELS nothing stacks:
+        every query runs alone in panels. Any gap pair: the kernel's F
+        chain is exact for all of them. The grouping decides launches
+        only, never results."""
         return (0 < len(queries) <= kernels.MULTI_MAX_SEGS
+                and not panels_forced()
                 and min(len(q) for q in queries) >= 1
                 and max(len(q) for q in queries) <= kernels.PANEL_ROWS
                 and self.supports(max(len(q) for q in queries), gap_open,
@@ -119,12 +164,11 @@ class RaggedBackend:
                       search_type, with_flags=False):
         """Enqueue the whole database, part by part; returns the handle,
         per part: the device tracker rows (with the overflow-flag rows
-        when with_flags), a PanelRows for a query taller than
-        kernels.PANEL_ROWS (the row count alone decides: the card has no
+        when with_flags), a PanelRows for a query that runs in panels
+        (panel_plan: the row count and the knobs decide, the card has no
         VMEM gate), or None for a part without blocks."""
         profiles = replicate(profile, ddb)
-        panels = (kernels.plan_panels(profile.shape[0])
-                  if profile.shape[0] > kernels.PANEL_ROWS else None)
+        panels = panel_plan(profile.shape[0])
         handle = []
         for part in ddb.parts:
             args = (profiles[part.device], part.stream, mode, search_type,

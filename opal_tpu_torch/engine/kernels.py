@@ -70,7 +70,9 @@ RESIDENT_THREADS_PER_SM = 1024
 # runs in panels (engine/backend.py), each launch covering PANEL_ROWS rows
 # of the whole database. 1,024, 4,096, 16,384 rows and one sweep ran a
 # 100,000-residue search within 0.5 % of each other on an H100 (PERF.md);
-# this is the smallest of them.
+# this is the smallest of them. The environment knobs OPAL_TPU_PANEL_ROWS,
+# OPAL_TPU_FORCE_PANELS and OPAL_TPU_NO_PANELS change the height and the
+# route at dispatch (backend.panel_plan); this stays the threshold.
 PANEL_ROWS = 1024
 
 # Launches of each kernel and calls of each plain version; the counts
@@ -168,10 +170,11 @@ def panel_tracker_rows(mode, search_type, with_flags, final):
     return tuple(rows) if rows else (TR_BEST,)
 
 
-def plan_panels(Q: int):
-    """((row0, rows), ...) of a Q-row query cut into PANEL_ROWS-row panels,
-    the last one shorter (opal_tpu's split, pallas_backend.py:286-300)."""
-    P = PANEL_ROWS
+def plan_panels(Q: int, rows: int | None = None):
+    """((row0, rows), ...) of a Q-row query cut into panels of `rows` rows
+    (PANEL_ROWS by default), the last one shorter (opal_tpu's split,
+    pallas_backend.py:286-300)."""
+    P = PANEL_ROWS if rows is None else rows
     if P < STRIP_ROWS or P % STRIP_ROWS:
         raise ValueError(f"PANEL_ROWS={P}: panels are whole strips of "
                          f"{STRIP_ROWS} rows")

@@ -385,7 +385,8 @@ def alignment_pass(query, db_list, gap_open, gap_ext, matrix, mode,
     degenerate optima keep exact score/end and omit the path (the
     reference aborts there, src/opal.cpp:1497). The per-pair traceback is
     host work, and its native C path releases the GIL, so 32 or more pairs
-    run on a thread pool across the host's cores.
+    run on a thread pool across the host's cores: OPAL_TPU_TRACEBACK_WORKERS
+    threads (0 or 1: serially), min(cores, 16) when it is unset.
 
     OPAL_TPU_DEVICE_FILL=1 (opal_tpu's switch, read where it reads it):
     two or more pairs are first filled and walked on `device`
@@ -448,7 +449,8 @@ def alignment_pass(query, db_list, gap_open, gap_ext, matrix, mode,
             r.alignment_length = len(ops)
         todo_align = [i for i in todo_align if i not in device_done]
 
-    workers = min(os.cpu_count() or 1, 16)
+    workers = os.environ.get("OPAL_TPU_TRACEBACK_WORKERS")
+    workers = int(workers) if workers else min(os.cpu_count() or 1, 16)
     if workers > 1 and len(todo_align) >= 32:
         with ThreadPoolExecutor(max_workers=workers) as pool:
             outcomes = list(pool.map(_align_one, todo_align))

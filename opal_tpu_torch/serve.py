@@ -26,10 +26,12 @@ in one such stacked pass, then reconstructs only each query's winners on
 the host (engine/search.py::alignment_pass).
 
 Run: ``python -m opal_tpu_torch.serve db.fasta [--matrix NAME]
-[--block-size N] [--device cuda|cpu]``. With ``--listen PORT`` the same
-line protocol is served over TCP (one JSON object per line per connection;
-concurrent connections are accepted, and their requests are batched
-through the one engine).
+[--block-size N] [--device cuda|cpu] [--keepalive SECONDS]``. With
+``--listen PORT`` the same line protocol is served over TCP (one JSON
+object per line per connection; concurrent connections are accepted, and
+their requests are batched through the one engine). ``--keepalive``
+(default 30, 0 disables it) touches the server's device every SECONDS
+from a daemon thread (Server.start_keepalive).
 """
 from __future__ import annotations
 
@@ -323,14 +325,46 @@ class Server:
             print(self._respond(line), file=fout, flush=True)
         return 0
 
-    def serve_tcp(self, port: int, host: str = "127.0.0.1",
-                  batch_window: float = 0.004) -> int:
-        """TCP front end for the same line protocol: each connection gets
-        the ready banner, then one JSON response line per request line.
+    def start_keepalive(self, interval: float = 30.0):
+        """Touch the server's device every `interval` seconds from a daemon
+        thread: a few-element tensor op and its copy to the host, which
+        synchronises. It keeps an idle device from leaving the next request
+        to absorb a wake-up stall. A beat never kills the server: any
+        exception ends the thread. Returns a callable that stops the
+        heartbeat; it is also stopped at exit, so no beat races the
+        interpreter's teardown."""
+        import atexit
+        import threading
+
+        import torch
+
+        stop = threading.Event()
+        dev = self.engine.device
+
+        def beat():
+            try:
+                x = torch.zeros(8, dtype=torch.float32, device=dev)
+                while not stop.wait(interval):
+                    (x + 1.0).cpu()
+            except BaseException:  # noqa: BLE001 (never kill the server)
+                return
+
+        threading.Thread(target=beat, name="opal-keepalive",
+                         daemon=True).start()
+        atexit.register(stop.set)
+        return stop.set
+
+    def bind_tcp(self, port: int = 0, host: str = "127.0.0.1",
+                 batch_window: float = 0.004):
+        """The TCP front end of the line protocol, bound but not yet
+        serving: run its serve_forever(), and call its close() to stop it
+        (close also ends the dispatcher thread). Each connection gets the
+        ready banner, then one JSON response line per request line.
         Requests of all connections go through one dispatcher thread that
         gathers arrivals for `batch_window` seconds and answers them with
         _respond_many, so compatible concurrent requests share stacked
-        launches. batch_window=0 answers strictly one request at a time."""
+        launches. batch_window=0 answers strictly one request at a time.
+        Port 0 binds a free port (server_address[1])."""
         import queue as _queue
         import socketserver
         import threading
@@ -343,16 +377,23 @@ class Server:
 
         def dispatcher():
             while True:
-                batch = [inbox.get()]
+                first = inbox.get()
+                if first is None:  # close()
+                    return
+                batch = [first]
                 deadline = _time.monotonic() + batch_window
                 while len(batch) < BATCH_CAP:
                     left = deadline - _time.monotonic()
                     if left <= 0:
                         break
                     try:
-                        batch.append(inbox.get(timeout=left))
+                        nxt = inbox.get(timeout=left)
                     except _queue.Empty:
                         break
+                    if nxt is None:
+                        inbox.put(None)  # answer this round, then stop
+                        break
+                    batch.append(nxt)
                 try:
                     outs = outer._respond_many([b[0] for b in batch])
                 except Exception as exc:  # noqa: BLE001 (keep serving)
@@ -408,7 +449,17 @@ class Server:
             # burst of concurrent clients
             request_queue_size = 128
 
-        with Srv((host, port), Handler) as srv:
+            def close(self):
+                self.shutdown()
+                self.server_close()
+                inbox.put(None)
+
+        return Srv((host, port), Handler)
+
+    def serve_tcp(self, port: int, host: str = "127.0.0.1",
+                  batch_window: float = 0.004) -> int:
+        """Serve the line protocol over TCP until interrupted (bind_tcp)."""
+        with self.bind_tcp(port, host, batch_window) as srv:
             self.tcp_server = srv  # lets a caller shut it down
             print(json.dumps({"listening": True, "host": host,
                               "port": srv.server_address[1]}), flush=True)
@@ -419,7 +470,7 @@ class Server:
         return 0
 
 
-def main(argv=None) -> int:
+def arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="opal_tpu_torch.serve",
                                 description=__doc__.split("\n")[0])
     p.add_argument("db")
@@ -442,12 +493,23 @@ def main(argv=None) -> int:
                    help="cross-request batching window for --listen: "
                         "compatible requests arriving within it share "
                         "stacked kernel launches (0 = strictly serial)")
-    args = p.parse_args(argv)
+    p.add_argument("--keepalive", type=float, default=30.0,
+                   metavar="SECONDS",
+                   help="touch the device every SECONDS so that an idle "
+                        "period never leaves the next request to absorb a "
+                        "wake-up stall (0 = disabled; default 30)")
+    return p
+
+
+def main(argv=None) -> int:
+    args = arg_parser().parse_args(argv)
     srv = Server(args.db, matrix_name=args.matrix,
                  matrix_file=args.matrix_file, block_size=args.block_size,
                  device=args.device)
     if args.warm:
         srv.warm(int(x) for x in args.warm.split(","))
+    if args.keepalive > 0:
+        srv.start_keepalive(args.keepalive)
     if args.listen is not None:
         return srv.serve_tcp(args.listen, host=args.host,
                              batch_window=args.batch_window)

@@ -1,22 +1,31 @@
-"""Measurement tools of the port: the card's own counterparts of the TPU
-probes in the repository's tools/ (roofline.py, exp_unroll.py,
-exp_sstack_ablate.py), which sized the DP kernel on the TPU.
+"""Measurement tools of the port: the card's own counterparts of the
+repository's tools/.
 
 Each module runs as `python -m opal_tpu_torch.tools.<name>` and prints one
-JSON line. The probes are CUDA C++ kernels under `csrc/` (built by
-engine/_build.py into the git-ignored engine/_build/, bound with ctypes);
-each has a plain PyTorch version beside it, which a CPU tensor runs and
-which the card's checks hold the kernel against. The modules run on
-"cuda" by default and raise without it; `--device cpu` runs the plain
-versions at a small size and reports no time.
+JSON line. Three of them (roofline, exp_unroll, exp_sstack_ablate) are the
+TPU probes that sized the DP kernel: CUDA C++ kernels under `csrc/` (built
+by engine/_build.py into the git-ignored engine/_build/, bound with
+ctypes), each with a plain PyTorch version beside it, which a CPU tensor
+runs and which the card's checks hold the kernel against. The others
+measure the engine's own paths: serving (serve_qps, serve_latency), the
+host's share of a search (exp_x1_gap), the device top k (exp_topk), the
+alignment pass (exp_align_topk, exp_device_fill, tb_scaling), the four
+modes (perf), long queries (exp_panels, exp_panel_rows, exp_panel_mesh)
+and the mesh (scaling_bench). Each has a run(...) that takes an existing
+Server or Engine and its resident database. The modules run on "cuda" by
+default and raise without it; `--device cpu` runs the plain versions at a
+small size and reports no time.
 
-This module holds what the three share: the launch counts, the library
-loader, CUDA-event timing, the SM clock sampled while a probe runs, and
-the SASS opcode counts of a built library.
+This module holds what they share: the launch counts, the library loader,
+CUDA-event timing, the SM clock sampled while a probe runs, the SASS
+opcode counts of a built library, the test queries, the synthetic
+database, and the one output line.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import json
 import os
 import re
 import statistics
@@ -27,6 +36,12 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# the repository's test queries (tests/port_data/<name>.fasta)
+PORT_DATA = Path(__file__).resolve().parents[2] / "tests" / "port_data"
+# lanes per block where a tool runs the plain versions at a small size
+CPU_BLOCK = 16
+# name endings of a result's times and rates, which a CPU run drops
+TIMED = ("_s", "_ms", "gcups", "qps", "_per_s", "speedup")
 PROBES = ("roofline", "exp_unroll", "exp_sstack")
 
 # Launches of each probe kernel (the wrappers count; plain versions do not)
@@ -193,4 +208,89 @@ def sass_counts(name: str) -> dict:
             if best is None or key > best:
                 best, loop = key, body
         out[fn] = {"all": _count(ins), "loop": _count(loop)}
+    return out
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables for a block (a value of None unsets one),
+    and restore them after it."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class Mismatch(AssertionError):
+    """Two paths that must agree gave different answers."""
+
+
+def require(cond, what: str) -> None:
+    if not cond:
+        raise Mismatch(what)
+
+
+def sync(dev) -> None:
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def seconds(fn) -> float:
+    """Host seconds of fn(), ended by a synchronize of every CUDA device."""
+    t0 = time.perf_counter()
+    fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def port_query(name: str, lut):
+    """The alphabet indices of tests/port_data/<name>.fasta's query."""
+    from ..fasta import read_fasta_file
+
+    qs, _ = read_fasta_file(str(PORT_DATA / f"{name}.fasta"), lut)
+    return qs[0]
+
+
+def synth_db(n: int, lut, seed: int = 12071):
+    """n synthetic sequences (opal_tpu_torch.synth) as alphabet indices."""
+    from ..synth import make_db_arrays
+
+    return [lut[a] for a in make_db_arrays(n, seed=seed)]
+
+
+def untimed(obj):
+    """obj without the keys that hold a time or a rate (TIMED endings), at
+    any depth of dicts and lists."""
+    if isinstance(obj, dict):
+        return {k: untimed(v) for k, v in obj.items()
+                if not k.endswith(TIMED)}
+    if isinstance(obj, list):
+        return [untimed(v) for v in obj]
+    return obj
+
+
+def report(tool: str, dev, res: dict) -> dict:
+    """Print a tool's one JSON line: res with the tool, the device and, on
+    the card, its name and power limit; a CPU run keeps no time. Returns
+    the printed object."""
+    cuda = torch.device(dev).type == "cuda"
+    out = {"tool": tool, "device": torch.device(dev).type, "measured": cuda,
+           **res}
+    if cuda:
+        out["card"] = nvidia_smi("name,power.limit")
+    else:
+        out = untimed(out)
+    print(json.dumps(out), flush=True)
     return out

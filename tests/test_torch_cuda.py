@@ -700,3 +700,94 @@ def test_dryrun_on_card(cuda, capsys):
     assert out["live_parts"] == 2
     assert capsys.readouterr().out.strip().splitlines()[-1].startswith(
         "dryrun_multichip(2): OK")
+
+
+# ------------------------------------------- panel knobs, serving tools
+
+@pytest.mark.parametrize("x", [0, 1])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_panel_knobs_on_card_match_one_sweep(cuda, monkeypatch, mode, x):
+    """OPAL_TPU_FORCE_PANELS at heights 16, 48 and the default against
+    OPAL_TPU_NO_PANELS (one sweep) and the CPU, with the panel role
+    launched where forced."""
+    rng = np.random.default_rng(40 + mode)
+    matrix = ScoreMatrix.blosum50().matrix
+    query = rng.integers(0, 20, size=150).astype(np.uint8)
+    db = [rng.integers(0, 20, size=int(n)).astype(np.uint8)
+          for n in rng.integers(1, 400, size=300)]
+    eng = Engine(device="cuda", block_size=128)
+    ddb = eng.upload(db)
+
+    def search():
+        return search_database_arrays(query, ddb, 3, 1, matrix, mode=mode,
+                                      search_type=x, engine=eng)
+
+    monkeypatch.setenv("OPAL_TPU_NO_PANELS", "1")
+    sweep = search()
+    monkeypatch.delenv("OPAL_TPU_NO_PANELS")
+    monkeypatch.setenv("OPAL_TPU_FORCE_PANELS", "1")
+    for rows in ("16", "48", None):
+        if rows is None:
+            monkeypatch.delenv("OPAL_TPU_PANEL_ROWS", raising=False)
+        else:
+            monkeypatch.setenv("OPAL_TPU_PANEL_ROWS", rows)
+        before = kernels.LAUNCHES["ragged_dp_panel"]
+        got = search()
+        assert kernels.LAUNCHES["ragged_dp_panel"] > before
+        for k in sweep:
+            np.testing.assert_array_equal(got[k], sweep[k], err_msg=k)
+    cpu = search_database_arrays(query, db, 3, 1, matrix, mode=mode,
+                                 search_type=x,
+                                 engine=Engine(device="cpu", block_size=128))
+    for k in sweep:
+        np.testing.assert_array_equal(cpu[k], sweep[k], err_msg=k)
+
+
+def test_serve_qps_batched_equals_serial_on_card(cuda):
+    """The tool's own check (batched answers == serial ones, raising
+    otherwise) on a small resident database, with multi_dp launched."""
+    from opal_tpu_torch.serve import Server
+    from opal_tpu_torch.tools import serve_qps
+
+    sm = ScoreMatrix.blosum50()
+    db, names = serve_qps.random_fasta_db(500, sm.letter_index(),
+                                          sm.alphabet)
+    srv = Server.from_sequences(db, names, sm, block_size=128,
+                                device="cuda")
+    before = kernels.LAUNCHES["multi_dp"]
+    res = serve_qps.run(srv, clients=8, reqs=3, qlen=60, curve=[1, 4])
+    assert res["identical"] and len(res["answers"]) == 24
+    assert kernels.LAUNCHES["multi_dp"] > before
+    for q, hits in list(res["answers"].items())[:4]:
+        assert hits == srv.handle({"query": q, "top_k": 5})["hits"]
+
+
+def test_keepalive_on_card(cuda):
+    """The heartbeat touches the card beside requests, changes no answer,
+    and stops when asked."""
+    import threading
+    import time
+
+    from opal_tpu_torch.serve import Server
+
+    sm = ScoreMatrix.blosum50()
+    rng = np.random.default_rng(9)
+    db = [rng.integers(0, 20, size=int(n)).astype(np.uint8)
+          for n in rng.integers(10, 200, size=200)]
+    srv = Server.from_sequences(db, [f"s{i}" for i in range(len(db))], sm,
+                                block_size=128, device="cuda")
+    q = "".join(sm.alphabet[j] for j in rng.integers(0, 20, size=30))
+    before = srv.handle({"query": q, "top_k": 3})
+    srv._cache.clear()
+    old = {t for t in threading.enumerate() if t.name == "opal-keepalive"}
+    stop = srv.start_keepalive(interval=0.02)
+    mine = [t for t in threading.enumerate()
+            if t.name == "opal-keepalive" and t not in old]
+    try:
+        time.sleep(0.3)
+        assert mine and mine[0].is_alive()
+        assert srv.handle({"query": q, "top_k": 3}) == before
+    finally:
+        stop()
+    mine[0].join(5)
+    assert not mine[0].is_alive()

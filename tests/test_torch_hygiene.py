@@ -54,6 +54,14 @@ def test_package_import_pulls_in_no_jax():
             "opal_tpu_torch.tools.exp_device_fill, "
             "opal_tpu_torch.tools.fill_shapes, "
             "opal_tpu_torch.tools.scaling_bench, "
+            "opal_tpu_torch.tools.serve_qps, "
+            "opal_tpu_torch.tools.serve_latency, "
+            "opal_tpu_torch.tools.exp_x1_gap, opal_tpu_torch.tools.exp_topk, "
+            "opal_tpu_torch.tools.exp_align_topk, "
+            "opal_tpu_torch.tools.perf, opal_tpu_torch.tools.tb_scaling, "
+            "opal_tpu_torch.tools.exp_panel_mesh, "
+            "opal_tpu_torch.tools.exp_panels, "
+            "opal_tpu_torch.tools.exp_panel_rows, "
             "opal_tpu_torch.engine.device_fill; "
             "import opal_tpu_torch.parallel.shard, "
             "opal_tpu_torch.parallel.multihost, "

@@ -13,7 +13,11 @@ exp_sstack's emitted rows. The CUDA kernels themselves are held against
 the plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 exp_device_fill (the device alignment fill against the host path) runs
 here only as an entry point; its plain version is held against opal_tpu
-in tests/test_torch_device_fill.py.
+in tests/test_torch_device_fill.py. So do the ten tools of the engine's
+paths (serve_qps, serve_latency, exp_x1_gap, exp_topk, exp_align_topk,
+perf, tb_scaling, exp_panel_mesh, exp_panels, exp_panel_rows); their
+answers are held against opal_tpu in tests/test_torch_serve_tools.py and
+tests/test_torch_search_tools.py.
 """
 import importlib.util
 import json
@@ -26,10 +30,20 @@ import pytest
 import torch
 
 from opal_tpu.engine import pallas_kernels as pk
+from opal_tpu_torch.tools import exp_align_topk as port_align_topk
 from opal_tpu_torch.tools import exp_device_fill as port_device_fill
+from opal_tpu_torch.tools import exp_panel_mesh as port_panel_mesh
+from opal_tpu_torch.tools import exp_panel_rows as port_panel_rows
+from opal_tpu_torch.tools import exp_panels as port_panels
 from opal_tpu_torch.tools import exp_sstack_ablate as port_sstack
+from opal_tpu_torch.tools import exp_topk as port_topk
 from opal_tpu_torch.tools import exp_unroll as port_unroll
+from opal_tpu_torch.tools import exp_x1_gap as port_x1_gap
+from opal_tpu_torch.tools import perf as port_perf
 from opal_tpu_torch.tools import roofline as port_roofline
+from opal_tpu_torch.tools import serve_latency as port_serve_latency
+from opal_tpu_torch.tools import serve_qps as port_serve_qps
+from opal_tpu_torch.tools import tb_scaling as port_tb_scaling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEG = -(2.0**30)
@@ -259,8 +273,12 @@ def test_sstack_plain_variants_agree():
 
 # ------------------------------------------------------------ entry points
 
-@pytest.mark.parametrize("module", [port_roofline, port_unroll, port_sstack,
-                                    port_device_fill],
+ENTRY_POINTS = [port_roofline, port_unroll, port_sstack, port_device_fill,
+                port_serve_qps, port_serve_latency, port_x1_gap, port_topk,
+                port_align_topk, port_perf, port_tb_scaling, port_panel_mesh,
+                port_panels, port_panel_rows]
+
+@pytest.mark.parametrize("module", ENTRY_POINTS,
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_entry_point_on_the_cpu_prints_one_json_line(module, capsys):
     assert module.main(["--device", "cpu"]) == 0
@@ -279,8 +297,7 @@ def test_entry_point_on_the_cpu_prints_one_json_line(module, capsys):
     assert not [k for k in keys(res) if k.endswith(("_s", "_ms"))]
 
 
-@pytest.mark.parametrize("module", [port_roofline, port_unroll, port_sstack,
-                                    port_device_fill],
+@pytest.mark.parametrize("module", ENTRY_POINTS,
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_entry_point_default_needs_cuda(module, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
