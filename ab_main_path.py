@@ -3,9 +3,10 @@
 trees in one call.
 
 Run from the root of a checkout (the tree under test), with a label and,
-optionally, --no-long to leave out the 100,000-residue query:
+optionally, --no-long to leave out the 100,000-residue query, or
+--kernels-only to print only the kernels' build facts (the last item):
 
-    python3 /path/to/ab_main_path.py LABEL [--no-long]
+    python3 /path/to/ab_main_path.py LABEL [--no-long | --kernels-only]
 
 It builds the kernels from that checkout, uploads the 541,762 synthetic
 sequences (seed 12071) as a server's resident database, and prints one
@@ -22,14 +23,22 @@ JSON line with, for that tree:
   length (mean of 5);
 - long: the 100,000-residue query (synth.FREQ, seed 100,000) through the
   panel role, one run, kernel ms summed over its launches;
-- ptxas's registers of the kernels' instantiations.
+- ptxas's registers of the kernels' SW instantiations (of every
+  instantiation of ragged_dp and multi_dp with --kernels-only), and per
+  function of those two libraries (with --kernels-only device_fill's too)
+  its SASS instruction count and a digest of its SASS text (cuobjdump
+  -sass, addresses and encodings left out), so two trees' builds compare
+  instruction for instruction.
 
 To compare a parent tree with a change, unpack the parent (git archive)
 into a git-ignored directory and run parent, change, change, parent in one
 chip call.
 """
+import hashlib
 import json
 import os
+import re
+import subprocess
 import sys
 import time
 
@@ -66,9 +75,48 @@ def launch_ms(fn):
     return sum(ms), ms
 
 
+def sass_facts(name):
+    """{function: [SASS instruction count, digest of its SASS text]} of
+    this tree's built library `name`."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(_build.so_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    ins, fn = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:  # the anonymous namespace's name depends on the file's path
+            fn = ins.setdefault(re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL_",
+                                       m.group(1)), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*(?:/\*.*)?$", ln)
+        if m and fn is not None:
+            fn.append(m.group(1))
+    return {f: [len(v), hashlib.sha256("\n".join(v).encode()).hexdigest()
+                [:16]] for f, v in ins.items()}
+
+
+def kernel_facts(log, every=False):
+    """ptxas's registers of ragged_dp's and multi_dp's instantiations (the
+    SW ones unless `every`) and their SASS facts (with `every`, device_fill's
+    too, whose source includes no shared header)."""
+    regs = {k: ptxas_summary(v.get("log", "")) for k, v in log.items()}
+    return {"ptxas": {k: {n: r for n, r in v.items()
+                          if every or n.startswith("mode3")}
+                      for k, v in regs.items()
+                      if k in ("ragged_dp", "multi_dp")},
+            "sass": {k: sass_facts(k) for k in ("ragged_dp", "multi_dp") + (
+                ("device_fill",) if every else ())}}
+
+
 def main():
     label = sys.argv[1] if len(sys.argv) > 1 else ""
     log = _build.build_all(report=True)
+    if "--kernels-only" in sys.argv:
+        print(json.dumps({"tree": label,
+                          "card": torch.cuda.get_device_name(0),
+                          **kernel_facts(log, every=True)}), flush=True)
+        return
     sm = ScoreMatrix.blosum50()
     lut = sm.letter_index()
     db = [lut[a] for a in make_db_arrays(541762, seed=12071)]
@@ -134,10 +182,7 @@ def main():
         out["long"] = {"kernel_ms": total, "launches": len(ms),
                        "launch_ms_max": max(ms),
                        "wall_s": time.perf_counter() - t}
-    regs = {k: ptxas_summary(v.get("log", "")) for k, v in log.items()}
-    out["ptxas"] = {k: {n: r for n, r in v.items() if n.startswith("mode3")}
-                    for k, v in regs.items() if k in ("ragged_dp",
-                                                      "multi_dp")}
+    out.update(kernel_facts(log))
     print(json.dumps(out), flush=True)
 
 

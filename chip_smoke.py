@@ -14,10 +14,14 @@ the last line:
              the int32 / DPX / f32 issue rates per SM per clock at the SM
              clock read under load, the probe loops' SASS opcode counts,
              the F-chain scan, ragged_dp's cells/s by slope, the column-body
-             ablation and its tail pair (192 CUDA blocks against a full
-             grid), the stacking ablation; then every probe variant against
-             its plain version at the tools' widths, exact. The measured
-             ceiling gives every kernel its bound_measured_ms;
+             ablation on ragged_dp's strip-group body (every variant
+             against `hooks`, the body in the probe's frame; base, ragged_dp
+             itself, at forced G 1-8) and its tail pair (192 CUDA blocks against a full grid), the
+             chains-per-thread ablation at the tool's and the main path's
+             query heights; then every probe variant, at the launch plan's
+             G and at every G, against its plain version at the tools'
+             widths, exact. The measured ceiling gives every kernel its
+             bound_measured_ms;
 4. kernel  - ragged_dp (without and with its overflow-flag rows) and
              multi_dp against their plain PyTorch versions, both on the
              card, on random streams (4 modes x score / score+end, several
@@ -248,7 +252,7 @@ def phase_tools(smi):
     kernels.reset_counts()
     roof = roofline.run("cuda", seconds=0.5)
     unroll = exp_unroll.run("cuda", ceiling=roof["ceiling"])
-    sstack = ss.run("cuda")
+    sstack = ss.run("cuda", ceiling=roof["ceiling"])
     launches = dict(tools.LAUNCHES)
     check(all(v > 0 for v in launches.values()),
           f"a tool launched no probe: {launches}")
@@ -261,7 +265,9 @@ def phase_tools(smi):
            "peak": roof["peak"]["variants"], "scan": roof["scan"],
            "kernel_slope": roof["kernel"],
            "unroll": unroll["variants"], "unroll_B": unroll["B"],
+           "unroll_g_sweep": unroll["g_sweep"],
            "tail": unroll["tail"], "sstack": sstack["variants"],
+           "sstack_main_height": sstack["main_height"],
            "sstack_B": sstack["B"], "run_s": run_s}
     emit({k: res[k] for k in ("phase", "card", "ceiling", "max_sm_mhz",
                               "peak", "launches")})
@@ -322,8 +328,9 @@ def phase_tools(smi):
         "bound_ms": op_bound_ms(row_cells, 2, 0)[0], "bound_by": "operations",
         "bound_measured_ms": measured_bound_ms(row_cells, ceil, 2)}
 
-    # exp_unroll: every variant and ragged_dp against the plain version on
-    # the tool's lanes, 8 chunks long
+    # exp_unroll: every variant at the plan's G and at every G, and
+    # ragged_dp, against the plain version on the tool's lanes, 8 chunks
+    # long (at the tool's Q of 104, r32's last strip holds 24 padding rows)
     B = unroll["B"]
     profile, Q = exp_unroll.random_profile(unroll["qpad"], 1, 0, "cuda")
     stream = exp_unroll.random_stream(B, 8 * 64, 1, "cuda")
@@ -333,67 +340,92 @@ def phase_tools(smi):
     plain_ms = (time.perf_counter() - t) * 1e3
     cases = bad = err = 0
     for v in exp_unroll.VARIANTS:
-        b, e = diff(exp_unroll.unroll_score(profile, stream, v), want)
-        cases, bad, err = cases + 1, bad + b, max(err, e)
+        for G in (None,) + exp_unroll.GROUPS:
+            b, e = diff(exp_unroll.unroll_score(profile, stream, v, G=G),
+                        want)
+            cases, bad, err = cases + 1, bad + b, max(err, e)
     b, e = diff(exp_unroll.single(profile, stream), want)
     cases, bad, err = cases + 1, bad + b, max(err, e)
     cells = unroll["cells"]
-    base = unroll["variants"]["base"]
+    hooks = unroll["variants"]["hooks"]  # the probe's kernel, default body
     entries["exp_unroll"] = {
         "replaces": "tools/exp_unroll.py:127:build",
         "source": "opal_tpu_torch/tools/csrc/exp_unroll.cu",
         "checked_cases": cases, "mismatches": bad, "max_abs_err": err,
-        "ms": base["ms"], "ms_at": f"base, Q {unroll['Q']} x {B} lanes x "
-                                   f"{unroll['columns']} columns",
+        "ms": hooks["ms"], "ms_at": f"hooks at G {hooks['G']}, Q "
+                                    f"{unroll['Q']} x {B} lanes x "
+                                    f"{unroll['columns']} columns",
         "variants_ms": {v: r["ms"] for v, r in unroll["variants"].items()},
+        "g_sweep_ms": {G: r["ms"] for G, r in unroll["g_sweep"].items()},
         "plain_ms": plain_ms,
-        "plain_at": f"the same lanes, 512 columns, where base takes "
-                    f"{time_cuda(lambda: exp_unroll.unroll_score(profile, stream), 3):.3f} ms",
+        "plain_at": f"the same lanes, 512 columns, where hooks takes "
+                    f"{time_cuda(lambda: exp_unroll.unroll_score(profile, stream, 'hooks'), 3):.3f} ms",
         "bound_ms": op_bound_ms(cells)[0], "bound_by": "operations",
         "bound_measured_ms": measured_bound_ms(cells, ceil)}
     del stream
 
-    # exp_sstack: every S, noprof and s1ctl against the plain version on
-    # the tool's streams, 8 chunks long
+    # exp_sstack: every S, strips2, noprof and s1ctl, each at the plan's G
+    # and at every G, against the plain version on the tool's streams, 8
+    # chunks long; at the main path's query height the lane and strip
+    # variants again
     S = sstack["S"]
-    profile, stream, meta, nb = ss.random_inputs(
-        sstack["qpad"], sstack["B"], 8, S, sstack["per_block"], 1, 1, "cuda")
-    t = time.perf_counter()
-    want = ss.sstack_plain(profile, stream, meta, nb)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t) * 1e3
     cases = bad = err = 0
-    for lanes in (1, 2, 4):
-        b, e = diff(ss.sstack_score(profile, stream, meta, nb, lanes), want)
-        cases, bad, err = cases + 1, bad + b, max(err, e)
-    b, e = diff(ss.sstack_score(profile, stream, meta, nb, S, True),
-                ss.sstack_plain(profile, stream, meta, nb, True))
-    cases, bad, err = cases + 1, bad + b, max(err, e)
-    ctl = ss.s1ctl_inputs(profile, stream, meta, S)
-    b, e = diff(ss.sstack_score(*ctl, nb, 1), ss.sstack_plain(*ctl, nb))
-    cases, bad, err = cases + 1, bad + b, max(err, e)
+    plain_ms = None
+    for qpad in (sstack["qpad"], sstack["main_height"]["qpad"]):
+        profile, stream, meta, nb = ss.random_inputs(
+            qpad, sstack["B"], 8, S, sstack["per_block"], 1, 1, "cuda")
+        t = time.perf_counter()
+        want = ss.sstack_plain(profile, stream, meta, nb)
+        torch.cuda.synchronize()
+        if plain_ms is None:
+            plain_ms = (time.perf_counter() - t) * 1e3
+            full_ms = time_cuda(
+                lambda: ss.sstack_score(profile, stream, meta, nb, S), 3)
+            plain_at = (f"the same streams, 512 columns, where full at S {S}"
+                        f" takes {full_ms:.3f} ms")
+        for G in (None,) + ss.GROUPS:
+            for lanes in (1, 2, 4):
+                b, e = diff(ss.sstack_score(profile, stream, meta, nb, lanes,
+                                            G=G), want)
+                cases, bad, err = cases + 1, bad + b, max(err, e)
+            b, e = diff(ss.sstack_score(profile, stream, meta, nb,
+                                        strips2=True, G=G), want)
+            cases, bad, err = cases + 1, bad + b, max(err, e)
+        if qpad == sstack["qpad"]:
+            want = ss.sstack_plain(profile, stream, meta, nb, True)
+            ctl = ss.s1ctl_inputs(profile, stream, meta, S)
+            want_ctl = ss.sstack_plain(*ctl, nb)
+            for G in (None,) + ss.GROUPS:
+                b, e = diff(ss.sstack_score(profile, stream, meta, nb, S,
+                                            True, G=G), want)
+                cases, bad, err = cases + 1, bad + b, max(err, e)
+                b, e = diff(ss.sstack_score(*ctl, nb, 1, G=G), want_ctl)
+                cases, bad, err = cases + 1, bad + b, max(err, e)
+            del ctl, want_ctl
+        del stream
     cells = sstack["cells"]
     entries["exp_sstack"] = {
         "replaces": "tools/exp_sstack_ablate.py:182:build_variant",
         "source": "opal_tpu_torch/tools/csrc/exp_sstack.cu",
         "checked_cases": cases, "mismatches": bad, "max_abs_err": err,
         "ms": sstack["variants"][f"full{S}"]["ms"],
-        "ms_at": f"full at S {S}, qpad {sstack['qpad']} x {S} x "
-                 f"{sstack['B']} lanes x {sstack['columns']} columns",
+        "ms_at": f"full at S {S}, G {sstack['variants'][f'full{S}']['G']},"
+                 f" qpad {sstack['qpad']} x {S} x {sstack['B']} lanes x "
+                 f"{sstack['columns']} columns",
         "variants_ms": {v: r["ms"] for v, r in sstack["variants"].items()},
-        "plain_ms": plain_ms,
-        "plain_at": f"the same streams, 512 columns, where full at S {S} "
-                    f"takes {time_cuda(lambda: ss.sstack_score(profile, stream, meta, nb, S), 3):.3f} ms",
+        "main_height_ms": {v: r["ms"] for v, r in
+                           sstack["main_height"]["variants"].items()},
+        "plain_ms": plain_ms, "plain_at": plain_at,
         "bound_ms": op_bound_ms(cells)[0], "bound_by": "operations",
         "bound_measured_ms": measured_bound_ms(cells, ceil)}
-    del stream
     for name, e in entries.items():
         e["launches"] = launches[name]
     res["entries"] = entries
     res["seconds"] = round(time.perf_counter() - t0, 1)
     emit({k: res[k] for k in ("phase", "scan", "kernel_slope", "unroll",
-                              "unroll_B", "tail", "sstack", "sstack_B",
-                              "entries", "run_s", "seconds")})
+                              "unroll_B", "unroll_g_sweep", "tail", "sstack",
+                              "sstack_main_height", "sstack_B", "entries",
+                              "run_s", "seconds")})
     bad = {k: e["mismatches"] for k, e in entries.items() if e["mismatches"]}
     check(not bad, f"probes disagree with their plain versions: {bad}")
     return res

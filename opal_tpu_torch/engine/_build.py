@@ -4,10 +4,11 @@ Each `<csrc>/<name>.cu` exports a plain C interface and compiles, at first
 use, into `_build/lib<name>-<hash>.so` beside this file (the directory is
 git-ignored). `csrc` is this package's `csrc/` (ragged_dp, multi_dp,
 device_fill) unless a caller names another source directory
-(opal_tpu_torch/tools/csrc holds the probes); names are unique across the
-directories. The hash covers the source, the headers (`*.cuh`) of its
-directory and the flags, so an edited source or header builds anew and an
-unchanged one loads what is there.
+(opal_tpu_torch/tools/csrc holds the probes, which include this package's
+strip_group.cuh); names are unique across the directories. The hash
+covers the source, the headers (`*.cuh`) of its directory and of this
+package's csrc/, and the flags, so an edited source or header builds anew
+and an unchanged one loads what is there.
 """
 from __future__ import annotations
 
@@ -43,8 +44,9 @@ def nvcc() -> str:
 
 
 def _target(name: str, csrc: Path = CSRC) -> Path:
+    deps = set(Path(csrc).resolve().glob("*.cuh")) | set(CSRC.glob("*.cuh"))
     src = (Path(csrc) / f"{name}.cu").read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(Path(csrc).glob("*.cuh")))
+        h.read_bytes() for h in sorted(deps))
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -331,3 +331,14 @@ extern "C" int ragged_dp_launch(
                : launch_any<false>(a, n_jobs, smem, stream, mode, track_end,
                                    with_flags);
 }
+
+// out[3]: resident CUDA blocks per SM of the SW score-only kernel (no
+// flags, no panel) at a largest group of max_g and profile width W, its
+// registers and local (spill) bytes per thread (sg::kernel_attrs). Returns
+// a cudaError_t (0 on success).
+extern "C" int ragged_dp_sw_attrs(int max_g, int W, int* out) {
+  if (W > MAX_W || W < 1 || max_g < 1 || max_g > MAX_G)
+    return (int)cudaErrorInvalidValue;
+  return kernel_attrs(ragged_dp_kernel<MODE_SW, false, false, false>,
+                      smem_bytes(max_g, W), out);
+}

@@ -361,13 +361,15 @@ def _check_inputs(profile: torch.Tensor, stream: Stream):
 
 def ragged_score(profile: torch.Tensor, stream: Stream, mode: int,
                  search_type: int, go: int, ge: int,
-                 with_flags: bool = False, events=None) -> torch.Tensor:
+                 with_flags: bool = False, events=None,
+                 G: int | None = None) -> torch.Tensor:
     """Score one query (profile [Q, W] int32) against every lane of the
     stream. Returns the tracker rows [NB, len(tracker_rows), B] int32 on
     the stream's device (see finalize_device); with_flags adds the
     overflow-flag rows (counted in LAUNCHES["ragged_dp_flags"]). `events`,
     a list, receives (wave, 0, start, end) CUDA events around each
-    launch."""
+    launch. G sets every block's threads per lane (1, 2, 4 or 8) in place
+    of the plan's (plan_groups; the probe tools.exp_unroll sweeps it)."""
     _check_inputs(profile, stream)
     dev = stream.letters.device
     if dev.type == "cpu":
@@ -378,11 +380,11 @@ def ragged_score(profile: torch.Tensor, stream: Stream, mode: int,
     return _ragged_launch(profile, stream, mode, search_type, go, ge,
                           with_flags,
                           "ragged_dp_flags" if with_flags else "ragged_dp",
-                          events)
+                          events, G)
 
 
 def _ragged_launch(profile, stream, mode, search_type, go, ge, with_flags,
-                   name, events=None):
+                   name, events=None, G=None):
     """ragged_dp over the whole stream as its launch plan lays it out, counted
     in LAUNCHES[name]."""
     dev = stream.letters.device
@@ -404,7 +406,7 @@ def _ragged_launch(profile, stream, mode, search_type, go, ge, with_flags,
             int(bool(with_flags)), 0, int(go), int(ge), cu_stream)
 
     _run_plan(name, launch, stream, -(-Q // STRIP_ROWS), False,
-              events=events)
+              events=events, G=G)
     return out
 
 
@@ -608,13 +610,14 @@ def plan_groups(block_cols, B: int, n_strips: int, threads: int):
 
 
 def plan_launch(host_offsets: np.ndarray, B: int, n_strips: int,
-                handoff: bool, threads: int) -> LaunchPlan:
+                handoff: bool, threads: int, G: int | None = None
+                ) -> LaunchPlan:
     """The launch plan of a kernel whose lanes walk n_strips strips over
     the stream with these block offsets (B lanes per block). `handoff`: the
     launches hand rows on to a following launch (query panels). `threads`:
     the threads the card keeps resident.
 
-    - G per block: plan_groups.
+    - G per block: plan_groups, or G for every block where it is given.
     - Every block in one launch, as CUDA blocks of THREADS threads
       (THREADS / G lanes each), the blocks ordered by their longest lane,
       longest first, so the longest chains start at once and short blocks
@@ -630,7 +633,12 @@ def plan_launch(host_offsets: np.ndarray, B: int, n_strips: int,
     NB = len(offs) - 1
     nbytes = offs[1:] - offs[:-1]
     cols = nbytes // max(B, 1)
-    groups = plan_groups(cols, B, n_strips, threads)
+    if G is None:
+        groups = plan_groups(cols, B, n_strips, threads)
+    elif G in (1, 2, 4, 8):
+        groups = np.full(NB, G, np.int32)
+    else:
+        raise ValueError(f"G={G}: 1, 2, 4 or 8 threads per lane")
     need = np.where(handoff | (n_strips > groups), nbytes, 0)
     order = np.argsort(-cols, kind="stable")
     n_w = max(1, -(-int(need.sum()) // SCRATCH_CELLS))
@@ -672,11 +680,12 @@ class _WaveArgs:
                      self.scr_off.data_ptr()))
 
 
-def plan_for(stream: Stream, n_strips: int,
-             handoff: bool = False) -> LaunchPlan:
+def plan_for(stream: Stream, n_strips: int, handoff: bool = False,
+             G: int | None = None) -> LaunchPlan:
     """The plan the kernels use for this stream on its device (see
-    plan_launch): n_strips strips per lane, `handoff` for query panels."""
-    return _device_plan(stream, n_strips, handoff)[0]
+    plan_launch): n_strips strips per lane, `handoff` for query panels, G
+    (where given) threads per lane in every block."""
+    return _device_plan(stream, n_strips, handoff, G)[0]
 
 
 # Launch plans on their device, by stream shape and planning constants: a
@@ -685,19 +694,19 @@ _PLANS: dict = {}
 _PLANS_KEPT = 64
 
 
-def _device_plan(stream: Stream, n_strips: int, handoff: bool):
+def _device_plan(stream: Stream, n_strips: int, handoff: bool, G=None):
     """(plan_launch's plan, [_WaveArgs] on the stream's device), cached by
-    the stream's block offsets, lanes and the planning constants."""
+    the stream's block offsets, lanes, G and the planning constants."""
     dev = stream.letters.device
     threads = (torch.cuda.get_device_properties(dev).multi_processor_count
                * RESIDENT_THREADS_PER_SM)
     B = stream.lengths.shape[1]
     key = (stream.host_offsets.tobytes(), B, n_strips, handoff, threads,
-           MAX_GROUP, SCRATCH_CELLS, str(dev))
+           MAX_GROUP, SCRATCH_CELLS, str(dev), G)
     hit = _PLANS.get(key)
     if hit is None:
         plan = plan_launch(stream.host_offsets, B, n_strips, handoff,
-                           threads)
+                           threads, G)
         groups = torch.from_numpy(plan.groups).to(dev)
         hit = (plan, [_WaveArgs(
             torch.from_numpy(j).to(dev), groups, torch.from_numpy(o).to(dev),
@@ -711,14 +720,15 @@ def _device_plan(stream: Stream, n_strips: int, handoff: bool):
 
 
 def _run_plan(name, launch, stream: Stream, n_strips: int, handoff: bool,
-              n_steps=1, events=None):
+              n_steps=1, events=None, G=None):
     """Run launch(wave_args, scratch_ptr, cu_stream, step) once per wave of
-    the stream's launch plan and, inside each wave, for step 0 .. n_steps-1
-    in order (the panels of a query), with one boundary scratch sized for
-    the largest wave (None when no block hands rows on). `events`, a list,
-    receives (wave, step, start, end) CUDA events around each launch."""
+    the stream's launch plan (at G threads per lane where given) and,
+    inside each wave, for step 0 .. n_steps-1 in order (the panels of a
+    query), with one boundary scratch sized for the largest wave (None when
+    no block hands rows on). `events`, a list, receives (wave, step, start,
+    end) CUDA events around each launch."""
     dev = stream.letters.device
-    plan, args = _device_plan(stream, n_strips, handoff)
+    plan, args = _device_plan(stream, n_strips, handoff, G)
     scratch = None
     if plan.scratch_cells:
         scratch = torch.empty(2 * plan.scratch_cells, dtype=torch.int32,
@@ -749,7 +759,9 @@ def _lib(name):
     lib = _build.load(name)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "ragged_dp":  # 9 pointers, n_jobs .. ge, stream
-        sigs = {"ragged_dp_launch": [vp] * 9 + [ci] * 13 + [vp]}
+        sigs = {"ragged_dp_launch": [vp] * 9 + [ci] * 13 + [vp],
+                # max_g, W, out[3]
+                "ragged_dp_sw_attrs": [ci] * 2 + [ctypes.POINTER(ci)]}
     else:  # multi_dp: 9 pointers, n_jobs, max_g, B, W, n_seg, seg_q, ...
         sigs = {"multi_dp_launch": [vp] * 9 + [ci] * 5
                 + [ctypes.POINTER(ci)] + [ci] * 4 + [vp]}

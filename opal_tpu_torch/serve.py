@@ -344,6 +344,11 @@ class Server:
         def beat():
             try:
                 x = torch.zeros(8, dtype=torch.float32, device=dev)
+                # the first touch, a copy to the host: a device the beat
+                # cannot read (meta) fails here at once, before any
+                # arithmetic on it (meta arithmetic first imports hundreds
+                # of modules, seconds on a loaded host)
+                x.cpu()
                 while not stop.wait(interval):
                     (x + 1.0).cpu()
             except BaseException:  # noqa: BLE001 (never kill the server)

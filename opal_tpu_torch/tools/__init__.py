@@ -54,6 +54,10 @@ SASS_OPS = ("IADD3", "VIADD", "IMAD", "MOV", "SEL", "IMNMX", "VIMNMX",
             "LDG", "STG")
 # the max-type opcodes: they issue on the 64-lane integer pipe only
 SASS_MAX_OPS = ("IMNMX", "VIMNMX", "VIMNMX3", "VIADDMNMX")
+ALU_PER_SM_CLK = 64
+# the max-type instructions an SW score-only cell needs at least, with the
+# DPX forms (engine/csrc/ragged_dp.cu's header)
+CELL_MAXES = 3.5
 
 
 def reset_counts() -> None:
@@ -144,14 +148,24 @@ def sm_count() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def sass(name: str) -> dict:
+def cell_bound_ms(cells: int, maxes: float = CELL_MAXES) -> float:
+    """The least milliseconds this card takes for `cells` SW score-only
+    cells: `maxes` max-type instructions each on the ALU pipe
+    (ALU_PER_SM_CLK per SM per clock), at its SM count and highest SM
+    clock."""
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return cells * maxes / (ALU_PER_SM_CLK * sm_count() * mhz * 1e6) * 1e3
+
+
+def sass(name: str, csrc: Path = CSRC) -> dict:
     """{function: [(address, opcode, branch target or None)]} of the built
-    probe library `name`, from `cuobjdump -sass`."""
+    library `name` (a probe's, or a kernel's with csrc its sources'
+    directory), from `cuobjdump -sass`."""
     from ..engine import _build
 
-    _build.load(name, CSRC)
+    _build.load(name, csrc)
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    r = subprocess.run([cuobjdump, "-sass", str(_build.so_path(name, CSRC))],
+    r = subprocess.run([cuobjdump, "-sass", str(_build.so_path(name, csrc))],
                        capture_output=True, text=True, timeout=120,
                        check=True)
     out, fn, labels, pending = {}, None, {}, []
@@ -190,24 +204,31 @@ def _count(ins) -> dict:
     return counts
 
 
-def sass_counts(name: str) -> dict:
-    """{function: {"all": {opcode: count}, "loop": {opcode: count}}} of the
-    built probe library `name`: opcodes of SASS_OPS and the total, in the
-    whole function and in its hot loop (of the instruction ranges from the
-    target of a backward branch to the branch, the one densest in max-type
-    instructions, FMNMX included; the innermost on a tie)."""
+def sass_counts(name: str, csrc: Path = CSRC) -> dict:
+    """{function: {"all": ..., "loop": ..., "main": ...}} of the built
+    library `name` (see sass), each {opcode: count} of SASS_OPS and the
+    total: in the whole function; in its hot loop (of the instruction
+    ranges from the target of a backward branch to the branch, the one
+    densest in max-type instructions, FMNMX included; the innermost on a
+    tie); and in its main loop (the innermost range that holds at least
+    half the max-type instructions the fullest range holds: a strip-group
+    sweep's column loop, whose masked steps branch back early)."""
     out = {}
-    for fn, ins in sass(name).items():
-        best, loop = None, []
+    for fn, ins in sass(name, csrc).items():
+        ranges = []
         for a, op, t in ins:
             if op != "BRA" or not isinstance(t, int) or t > a:
                 continue
             body = [i for i in ins if t <= i[0] <= a]
-            n_max = sum(i[1] in SASS_MAX_OPS + ("FMNMX",) for i in body)
-            key = (n_max / len(body), -len(body))
-            if best is None or key > best:
-                best, loop = key, body
-        out[fn] = {"all": _count(ins), "loop": _count(loop)}
+            ranges.append((sum(i[1] in SASS_MAX_OPS + ("FMNMX",)
+                               for i in body), body))
+        loop = max(ranges, key=lambda r: (r[0] / len(r[1]), -len(r[1])),
+                   default=(0, []))[1]
+        most = max((n for n, _ in ranges), default=0)
+        main = min((r for r in ranges if 2 * r[0] >= most),
+                   key=lambda r: len(r[1]), default=(0, []))[1]
+        out[fn] = {"all": _count(ins), "loop": _count(loop),
+                   "main": _count(main)}
     return out
 
 

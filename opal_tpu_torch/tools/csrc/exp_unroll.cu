@@ -12,184 +12,144 @@
 // layout ([t4, B, 4] int8 letters, lengths [B]), so the same input runs
 // through ragged_dp and its plain version.
 //
-// Variants, one template each (all equal to each other and to ragged_dp):
-//   base      - ragged_dp's SW x0 strip body as it is (R = 16 rows);
-//   fold2     - the score tracker folded over two columns with
-//               __vimax3_s32 (best = max3(best, H[t-1], H[t])): what the
-//               TPU's unroll2 did;
+// Design: ragged_dp's own strip-group body. `base` is ragged_dp's kernel
+// itself, launched by the wrapper through the engine's library at a G the
+// caller gives. The variants run ragged_dp's frame over one block
+// (unroll_kernel: a lane's strips go to G threads of one warp; each pass
+// stages G strips of the profile in shared memory, sweeps them as a column
+// wavefront with rows handed on by __shfl_up_sync and, between passes,
+// through an int2 scratch, and merges the strips' bests by shuffle,
+// sg::merge_strip) through sg::sweep, the wavefront ragged_dp runs, with
+// another column body (sg::Body). All equal each other and ragged_dp:
+//   hooks     - the default sg::Body: ragged_dp's column body in this
+//               frame, with no variant's change (the variants' control);
+//   fold2     - the score tracker folded over two cells with
+//               __vimax3_s32 (best = max3(best, H[2i][t], H[2i+1][t])),
+//               what the TPU's unroll2 did over two columns; rows pair up
+//               inside one compiled column body, which ragged_dp shares;
 //   dpx       - E and F by __viaddmax_s32, H by __vimax3_s32_relu;
 //   dpx_fold2 - both;
-//   r8, r32   - base at strip heights 8 and 32 (r32 with h pinned, see
-//               the kernel).
-// What bounds it: as ragged_dp, int32 issue (11 instructions per cell in
-// base, 7 of them max-type; dpx needs 6, 4 max-type; the fold saves half a
-// max per cell). Bytes: letters once per strip, 16 / R scratch bytes per
-// cell.
+//   r8, r32   - strip heights 8 and 32 inside the group (r32 with h
+//               pinned in a register, see sg::sweep).
+// What bounds it: as ragged_dp, int32 issue along each column's R-row
+// chain (3.5 max-type instructions per SW x0 cell at least, on the 64-lane
+// ALU pipe). Bytes: letters once per pass, scratch only between passes.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "../../engine/csrc/strip_group.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int MAX_W = 128;
+using namespace sg;
 
-struct Args {
+struct UnrollArgs {
   const int* profile;     // [Q, W] int32
   const int8_t* letters;  // [t4, B, 4]
   const int* lengths;     // [B]
-  int2* scratch;          // (H, F) of a strip's last row, [t, B]
+  int2* scratch;          // (H, F) of a pass's last row, [t, B]
   int* out;               // [B]
-  int B, Q, W, go, ge;
+  int B, Q, W, G, go, ge;
 };
 
-constexpr int PAD_NEG = -(1 << 20);
-
-template <int R, bool FOLD, bool DPX>
-__global__ void __launch_bounds__(THREADS) unroll_kernel(Args a) {
-  constexpr int RS = R + 1;  // odd shared-memory stride per letter
-  __shared__ int sprof[MAX_W * RS];
-  const int lane = blockIdx.x * THREADS + threadIdx.x;
+template <int RR, bool FOLD, bool DPX>
+__global__ void __launch_bounds__(THREADS) unroll_kernel(UnrollArgs a) {
+  using V = Body<RR, DPX, FOLD>;
+  extern __shared__ int sprof[];  // [G][W][RR + 1]
+  const int G = a.G;
+  const int g = threadIdx.x & (G - 1);
+  const int lane = blockIdx.x * (THREADS / G) + threadIdx.x / G;
   const int B = a.B, Q = a.Q, W = a.W, go = a.go, ge = a.ge;
   const int len = lane < B ? a.lengths[lane] : 0;
+  const int wlen = __reduce_max_sync(FULL, len);
+  const int steps = wlen > 0 ? wlen + G - 1 : 0;
   const uint32_t* lw = reinterpret_cast<const uint32_t*>(a.letters) + lane;
   int2* scr = a.scratch == nullptr ? nullptr : a.scratch + lane;
-  const int ns = (Q + R - 1) / R;
-  int best = 0;
+  const int ns = (Q + RR - 1) / RR;
+  const int passes = (ns + G - 1) / G;
+  int best = 0, best_r = 0, best_c = 0, ocm = NEG, orow = 0;
+  Flags fl{};  // unused: no flag rows
 
-  for (int s = 0; s < ns; ++s) {
-    const int r0 = s * R;
-    __syncthreads();
-    for (int i = threadIdx.x; i < W * R; i += THREADS) {
-      const int c = i / R, j = i - c * R;
-      sprof[c * RS + j] = r0 + j < Q ? a.profile[(r0 + j) * W + c] : PAD_NEG;
-    }
-    __syncthreads();
-    if (len == 0) continue;
+  for (int p = 0; p < passes; ++p) {
+    stage_profile<RR>(sprof, a.profile, p * G * RR, Q, G, W);
+    const int s = p * G + g;  // this thread's strip
+    const bool mine = s < ns;
+    const int r0 = s * RR;
     const bool last = s == ns - 1;
-
-    int H[R], E[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      H[j] = 0;
-      E[j] = 0;
-    }
-    int ul = 0;  // H[r0-1][t-1]: 0 at column 0 (SW)
-
-    for (int t4 = 0; t4 < len; t4 += 4) {
-      const uint32_t w = __ldg(lw + (size_t)(t4 >> 2) * B);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int t = t4 + k;
-        if (t >= len) break;
-        const int* pr = sprof + ((w >> (8 * k)) & 0x7f) * RS;
-        int hu = 0, fu = 0;  // row -1 of SW
-        if (s > 0) {
-          const int2 b = scr[(size_t)t * B];
-          hu = b.x;
-          fu = b.y;
-        }
-        int diag = ul;
-        ul = hu;
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          int e, f, h;
-          const int d = diag + pr[j];
-          if (DPX) {
-            e = __viaddmax_s32(E[j], -ge, H[j] - go);
-            f = __viaddmax_s32(fu, -ge, hu - go);
-            h = __vimax3_s32_relu(e, f, d);
-          } else {
-            e = max(H[j] - go, E[j] - ge);
-            f = max(hu - go, fu - ge);
-            h = max(max(max(e, f), d), 0);
-          }
-          // Above 16 rows this fully unrolled body compiles wrong with
-          // nvcc 12.8 for sm_90a: at R = 24 and 32 the SW best comes out 1
-          // too high on lanes whose strip holds 24 or more padding rows,
-          // where the same source at R <= 16, or with the row loop unrolled
-          // by 8, gives the exact result. Pinning h in a register (an empty
-          // asm) makes it exact; R <= 16, ragged_dp's height, gets no pin.
-          if (R > 16) asm volatile("" : "+r"(h));
-          // fold: odd columns take the max of this column and the one
-          // before (H[j] still holds it); even columns track nothing
-          if (!FOLD) {
-            best = max(best, h);
-          } else if (k & 1) {
-            best = __vimax3_s32(best, H[j], h);
-          }
-          diag = H[j];
-          H[j] = h;
-          E[j] = e;
-          hu = h;
-          fu = f;
-        }
-        if (!last) scr[(size_t)t * B] = make_int2(hu, fu);
-      }
-    }
-    if (FOLD && (len & 1)) {  // column len-1 is even: not folded yet
-#pragma unroll
-      for (int j = 0; j < R; ++j) best = max(best, H[j]);
-    }
+    const int jl = Q - 1 - r0;
+    const bool put = mine && g == G - 1 && s + 1 < ns;
+    const int src = g > 0 ? SRC_SHUFFLE : r0 > 0 ? SRC_SCRATCH : SRC_WALL;
+    const StripOut o = sweep<MODE_SW, false, false, V>(
+        sprof + g * W * (RR + 1), lw, scr, B, len, steps, G, g, mine, src,
+        put, last, r0, jl, last ? jl : RR - 1, go, ge, fl);
+    for (int g2 = 0; g2 < G && p * G + g2 < ns; ++g2)
+      merge_strip<MODE_SW, false>(o, g2, G, best, best_r, best_c, ocm, orow);
   }
-  if (lane < B) a.out[lane] = best;
+  if (lane < B && g == 0) a.out[lane] = best;
 }
 
-template <int R, bool FOLD, bool DPX>
-int launch(const Args& a, cudaStream_t stream) {
-  const unsigned grid = (unsigned)((a.B + THREADS - 1) / THREADS);
-  unroll_kernel<R, FOLD, DPX><<<grid, THREADS, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+// dynamic shared memory of G strips of RR rows, W letters
+inline size_t smem_rows(int G, int W, int RR) {
+  return (size_t)G * W * (RR + 1) * sizeof(int);
 }
 
-template <int R, bool FOLD, bool DPX>
-int occupancy() {
-  int n = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, unroll_kernel<R, FOLD, DPX>, THREADS, 0);
-  return err == cudaSuccess ? n : -(int)err;
+template <int RR, bool FOLD, bool DPX>
+int launch_probe(const UnrollArgs& a, cudaStream_t stream) {
+  const int grid = (int)(((size_t)a.B * a.G + THREADS - 1) / THREADS);
+  const int err = launch_kernel(unroll_kernel<RR, FOLD, DPX>, a, grid,
+                                smem_rows(a.G, a.W, RR), stream);
+  return err ? err : (int)cudaGetLastError();
+}
+
+constexpr int strip_rows(int variant) {
+  return variant == 4 ? 8 : variant == 5 ? 32 : 16;
 }
 
 }  // namespace
 
-// variant: 0 base, 1 fold2, 2 dpx, 3 dpx_fold2, 4 r8, 5 r32.
-// scratch holds 2 int32 per letter byte (may be null when Q <= the
-// variant's strip height). Returns cudaGetLastError() (0 on success).
+// variant: 1 fold2, 2 dpx, 3 dpx_fold2, 4 r8, 5 r32, 6 hooks (0, base, is
+// ragged_dp's own launch). G: threads per lane (1, 2, 4 or 8).
+// scratch holds 2 int32 per letter byte (may be null when Q fits one
+// pass, G strips of the variant's height). Returns cudaGetLastError() (0
+// on success).
 extern "C" int exp_unroll_launch(const void* profile, const void* letters,
                                  const void* lengths, void* scratch,
-                                 void* out, int B, int Q, int W, int go,
-                                 int ge, int variant, void* stream) {
-  const int R = variant == 4 ? 8 : variant == 5 ? 32 : 16;
-  if (B < 1 || Q < 1 || W < 1 || W > MAX_W ||
-      (Q > R && scratch == nullptr))
+                                 void* out, int B, int Q, int W, int G,
+                                 int go, int ge, int variant, void* stream) {
+  if (variant < 1 || variant > 6 || B < 1 || Q < 1 || W < 1 || W > MAX_W ||
+      G < 1 || G > MAX_G || (G & (G - 1)) != 0 ||
+      (Q > G * strip_rows(variant) && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  Args a{static_cast<const int*>(profile),
-         static_cast<const int8_t*>(letters),
-         static_cast<const int*>(lengths),
-         static_cast<int2*>(scratch),
-         static_cast<int*>(out),
-         B, Q, W, go, ge};
+  UnrollArgs a{static_cast<const int*>(profile),
+               static_cast<const int8_t*>(letters),
+               static_cast<const int*>(lengths),
+               static_cast<int2*>(scratch),
+               static_cast<int*>(out),
+               B, Q, W, G, go, ge};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {
-    case 0: return launch<16, false, false>(a, s);
-    case 1: return launch<16, true, false>(a, s);
-    case 2: return launch<16, false, true>(a, s);
-    case 3: return launch<16, true, true>(a, s);
-    case 4: return launch<8, false, false>(a, s);
-    case 5: return launch<32, false, false>(a, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 1: return launch_probe<16, true, false>(a, s);
+    case 2: return launch_probe<16, false, true>(a, s);
+    case 3: return launch_probe<16, true, true>(a, s);
+    case 4: return launch_probe<8, false, false>(a, s);
+    case 5: return launch_probe<32, false, false>(a, s);
+    default: return launch_probe<16, false, false>(a, s);
   }
 }
 
-// Resident CUDA blocks per SM of a variant (negative: a CUDA error).
-extern "C" int exp_unroll_occupancy(int variant) {
+// out[3]: resident CUDA blocks per SM at G threads per lane and profile
+// width W, registers per thread, local (spill) bytes per thread, of a
+// variant as exp_unroll_launch numbers them (sg::kernel_attrs). Returns a
+// cudaError_t (0 on success).
+extern "C" int exp_unroll_attrs(int variant, int G, int W, int* out) {
+  if (G < 1 || G > MAX_G || W < 1 || W > MAX_W)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_rows(G, W, strip_rows(variant));
   switch (variant) {
-    case 0: return occupancy<16, false, false>();
-    case 1: return occupancy<16, true, false>();
-    case 2: return occupancy<16, false, true>();
-    case 3: return occupancy<16, true, true>();
-    case 4: return occupancy<8, false, false>();
-    case 5: return occupancy<32, false, false>();
-    default: return -(int)cudaErrorInvalidValue;
+    case 1: return kernel_attrs(unroll_kernel<16, true, false>, smem, out);
+    case 2: return kernel_attrs(unroll_kernel<16, false, true>, smem, out);
+    case 3: return kernel_attrs(unroll_kernel<16, true, true>, smem, out);
+    case 4: return kernel_attrs(unroll_kernel<8, false, false>, smem, out);
+    case 5: return kernel_attrs(unroll_kernel<32, false, false>, smem, out);
+    case 6: return kernel_attrs(unroll_kernel<16, false, false>, smem, out);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -34,6 +34,7 @@ import torch
 
 from ..engine.search import resolve_device
 from . import (
+    CELL_MAXES,
     LAUNCHES,
     SASS_MAX_OPS,
     check_launch,
@@ -53,9 +54,6 @@ MAX3_LO = -(2**30)  # max3's third operand: below every value
 # ragged_dp's instructions per SW cell without DPX, and the max-type ones
 # among them (engine/csrc/ragged_dp.cu's header)
 OPS_PER_CELL, MAX_OPS_PER_CELL = 11, 7
-# the max-type instructions an SW score-only cell needs at least, with the
-# DPX forms (ragged_dp.cu's header)
-CELL_MAXES = 3.5
 SCAN_QP = (16, 32, 48, 64, 80, 96, 112, 128)
 
 

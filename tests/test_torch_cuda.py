@@ -458,46 +458,63 @@ def test_scan_probe_matches_plain(cuda, qp):
                                atol=0)
 
 
+@pytest.mark.parametrize("G", [None, 1, 2, 4, 8])
 @pytest.mark.parametrize("variant", ["base", "fold2", "dpx", "dpx_fold2",
-                                     "r8", "r32"])
-def test_unroll_probe_matches_plain(cuda, variant):
-    """Every column-body variant against the plain version and ragged_dp,
-    on lanes of ragged (odd and even) lengths in one block."""
+                                     "r8", "r32", "hooks"])
+def test_unroll_probe_matches_plain(cuda, variant, G):
+    """Every column-body variant at the plan's G and at every G against the
+    plain version and ragged_dp, on lanes of ragged (odd and even, 0 too)
+    lengths in one block; Q 1, 8, 40 and 72 leave 24 or more padding rows
+    in a 32-row strip (where nvcc 12.8 miscompiled r32 unpinned), Q 104
+    and 200 run several passes at small G."""
     from opal_tpu_torch.tools import LAUNCHES, exp_unroll
 
     matrix = ScoreMatrix.blosum50().matrix
     rng = np.random.default_rng(40)
     B = 300
     lengths = rng.integers(0, 131, size=B).astype(np.int32)
+    lengths[:2] = 0
     letters = rng.integers(0, 24, size=(132, B)).astype(np.int8)
     stream = kernels.pack_stream([letters], [lengths], B, cuda)
-    for Q in (1, 8, 17, 40):
+    for Q in (1, 8, 17, 40, 72, 104, 200):
         profile = torch.from_numpy(kernels.build_profile(
             matrix[rng.integers(0, 24, size=Q)].T)).to(cuda)
-        launches = LAUNCHES["exp_unroll"]
-        got = exp_unroll.unroll_score(profile, stream, variant)
-        assert LAUNCHES["exp_unroll"] > launches
+        # base is ragged_dp's own launch, the others the probe's
+        count = (kernels.LAUNCHES, "ragged_dp") if variant == "base" else \
+            (LAUNCHES, "exp_unroll")
+        launches = count[0][count[1]]
+        got = exp_unroll.unroll_score(profile, stream, variant, G=G)
+        assert count[0][count[1]] > launches
         want = exp_unroll.unroll_plain(profile, stream)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
         torch.testing.assert_close(exp_unroll.single(profile, stream), want,
                                    rtol=0, atol=0)
-    assert exp_unroll.occupancy(variant) > 0
+    a = exp_unroll.attrs(variant, G or 8)
+    assert a["blocks_per_sm"] > 0 and a["registers"] > 0
 
 
+@pytest.mark.parametrize("G", [None, 1, 2, 4, 8])
 @pytest.mark.parametrize("noprof", [False, True])
-@pytest.mark.parametrize("S", [1, 2, 4])
-def test_sstack_probe_matches_plain(cuda, S, noprof):
+@pytest.mark.parametrize("S", [1, 2, 4, "strips2"])
+def test_sstack_probe_matches_plain(cuda, S, noprof, G):
+    """lanes<S> and strips2, with and without the profile lookup, at the
+    plan's G and at every G against the plain version: one pass, several
+    passes through scratch, the main path's 7 strips."""
     from opal_tpu_torch.tools import LAUNCHES, exp_sstack_ablate as ss
 
-    for qpad in (16, 37):
+    kind = dict(S=1, strips2=True) if S == "strips2" else dict(S=S)
+    for qpad in (16, 37, 110, 200):
         profile, stream, meta, nb = ss.random_inputs(qpad, 200, 5, 4, 2, 1,
                                                      qpad, cuda)
         launches = LAUNCHES["exp_sstack"]
-        got = ss.sstack_score(profile, stream, meta, nb, S, noprof)
+        got = ss.sstack_score(profile, stream, meta, nb, noprof=noprof, G=G,
+                              **kind)
         assert LAUNCHES["exp_sstack"] > launches
         torch.testing.assert_close(
             got, ss.sstack_plain(profile, stream, meta, nb, noprof), rtol=0,
             atol=0)
+    a = ss.attrs(noprof=noprof, G=G or 8, **kind)
+    assert a["blocks_per_sm"] > 0 and a["registers"] > 0
 
 
 # the device alignment fill (engine/device_fill.py, csrc/device_fill.cu)

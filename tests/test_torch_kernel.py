@@ -238,6 +238,23 @@ def test_plan_one_pass_needs_no_scratch(n_strips, want):
         4440 * 32, 4400 * 32, 4000 * 32, 0]
 
 
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_plan_takes_a_given_group(G):
+    """plan_launch with G: every block at G threads per lane, scratch
+    exactly where a lane's strips need more than one pass (here 3 strips),
+    jobs of THREADS / G lanes; any other G is refused."""
+    cols = np.array([4, 40, 400])
+    offsets = np.concatenate([[0], np.cumsum(cols * 32)])
+    plan = kernels.plan_launch(offsets, 32, 3, False, 10**4, G=G)
+    assert plan.groups.tolist() == [G] * 3
+    assert plan.scratch_cells == (int(cols.sum()) * 32 if G < 3 else 0)
+    for b in range(3):
+        lane0 = plan.jobs[0][plan.jobs[0][:, 0] == b, 1]
+        assert list(lane0) == list(range(0, 32, kernels.THREADS // G))
+    with pytest.raises(ValueError):
+        kernels.plan_launch(offsets, 32, 3, False, 10**4, G=3)
+
+
 def test_plan_groups_follow_lengths(monkeypatch):
     """A query taller than MAX_GROUP strips: the smallest G whose longest
     chain fits half the work per resident thread; longer blocks take larger

@@ -8,9 +8,12 @@ interpret=True and without TPU compiler parameters. On the CPU each probe's
 wrapper runs its plain version, which must equal the TPU kernel's output
 exactly: peak's f32 state (the int forms 8 x it), scan's row 0 (and the
 whole H against a numpy transcription of tools/roofline.py:127-135),
-exp_unroll's best score from every variant against every TPU variant, and
-exp_sstack's emitted rows. The CUDA kernels themselves are held against
-the plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
+exp_unroll's best score against every TPU variant, and exp_sstack's
+emitted rows (every variant of one probe shares its plain function, apart
+from exp_sstack's noprof and s1ctl; G and S choose only how the card runs
+it). The CUDA kernels themselves, every variant at every G and S, are held
+against the plain versions on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
 exp_device_fill (the device alignment fill against the host path) runs
 here only as an entry point; its plain version is held against opal_tpu
 in tests/test_torch_device_fill.py. So do the ten tools of the engine's
@@ -19,6 +22,7 @@ perf, tb_scaling, exp_panel_mesh, exp_panels, exp_panel_rows); their
 answers are held against opal_tpu in tests/test_torch_serve_tools.py and
 tests/test_torch_search_tools.py.
 """
+import functools
 import importlib.util
 import json
 import os
@@ -58,17 +62,24 @@ def _tool(name):
     return mod
 
 
-@pytest.fixture
-def interpret(monkeypatch):
-    """pallas_call in interpret mode, without TPU compiler parameters."""
-    orig = jpl.pallas_call
+_PALLAS_CALL = jpl.pallas_call
 
+
+def _interpret_pallas(mp):
+    """Make `mp` (a MonkeyPatch) run pallas_call in interpret mode, without
+    TPU compiler parameters."""
     def pallas_call(*args, **kw):
         kw.pop("compiler_params", None)
         kw["interpret"] = True
-        return orig(*args, **kw)
+        return _PALLAS_CALL(*args, **kw)
 
-    monkeypatch.setattr(jpl, "pallas_call", pallas_call)
+    mp.setattr(jpl, "pallas_call", pallas_call)
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """pallas_call in interpret mode, without TPU compiler parameters."""
+    _interpret_pallas(monkeypatch)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -172,26 +183,53 @@ def test_scan_moving_state_matches_numpy(qp):
 
 # ------------------------------------------------------------ exp_unroll (P3)
 
-def test_unroll_matches_every_tpu_variant(interpret):
-    Q_pad, B, C = 32, 128, 2
+@functools.lru_cache(maxsize=None)
+def _tpu_unroll(Q_pad):
+    """(qprofile, letters, lengths, {TPU variant: best [B]}) of the TPU
+    tool in interpret mode: B lanes of C chunks, lane lengths from 0 to
+    C x 64 (letters past a lane's length are the padding letter, whose
+    profile column is PAD_NEG, so the TPU kernel's best over all columns is
+    the best over the lane's own)."""
+    B, C = 128, 2
     tool = _tool("exp_unroll")
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(Q_pad)
     meta = np.zeros((6, C), np.int32)
     letters = rng.integers(0, 20, size=(C, pk.T_CHUNK, B)).astype(np.int8)
+    lengths = rng.integers(0, C * pk.T_CHUNK + 1, size=B).astype(np.int32)
+    lengths[:4] = [0, 1, C * pk.T_CHUNK, 0]
+    flat = letters.reshape(C * pk.T_CHUNK, B)
+    flat[np.arange(C * pk.T_CHUNK)[:, None] >= lengths[None]] = pk.A_PAD - 1
     qprofile = rng.integers(-4, 12, size=(24, Q_pad - 8)).astype(np.int32)
     qp = pk.prepare_qp(qprofile, 1)
-    np.testing.assert_array_equal(port_unroll.prepare_qp(qprofile, 1), qp)
     want = {}
-    for v in ("base", "unroll2", "unroll4", "unroll8"):
-        out = tool.build(v, Q_pad, B)(jnp.asarray(meta),
-                                      jnp.asarray(qp, jnp.bfloat16),
-                                      jnp.asarray(letters), 2)
-        want[v] = np.asarray(out[0])[0, 0]
-    profile, stream = port_unroll.inputs(qp, Q_pad - 8, letters, 1, "cpu")
-    for v in port_unroll.VARIANTS:
-        got = port_unroll.unroll_score(profile, stream, v).numpy()
-        for tv, w in want.items():
-            np.testing.assert_array_equal(got, w, err_msg=f"{v} vs {tv}")
+    with pytest.MonkeyPatch.context() as mp:
+        _interpret_pallas(mp)
+        for v in ("base", "unroll2", "unroll4", "unroll8"):
+            out = tool.build(v, Q_pad, B)(jnp.asarray(meta),
+                                          jnp.asarray(qp, jnp.bfloat16),
+                                          jnp.asarray(letters), 2)
+            want[v] = np.asarray(out[0])[0, 0]
+    return qprofile, letters, lengths, want
+
+
+@pytest.mark.parametrize("Q_pad", [32, 48])
+def test_unroll_matches_every_tpu_variant(Q_pad):
+    """The variants' plain function against every TPU variant, on lanes of
+    length 0 to 128, at Q 24 and 40 (Q 40: r32's second strip holds 24
+    padding rows, r16's third 8)."""
+    from opal_tpu_torch.engine import kernels
+
+    qprofile, letters, lengths, want = _tpu_unroll(Q_pad)
+    qp = pk.prepare_qp(qprofile, 1)
+    np.testing.assert_array_equal(port_unroll.prepare_qp(qprofile, 1), qp)
+    profile, _ = port_unroll.inputs(qp, Q_pad - 8, letters, 1, "cpu")
+    C, tc, B = letters.shape
+    stream = kernels.pack_stream([letters.reshape(C * tc, B)], [lengths], B,
+                                 "cpu")
+    got = port_unroll.unroll_score(profile, stream).numpy()
+    assert got[0] == got[3] == 0
+    for tv, w in want.items():
+        np.testing.assert_array_equal(got, w, err_msg=f"vs {tv}")
 
 
 def test_unroll_input_is_the_tools_sequence():
@@ -223,31 +261,61 @@ def test_sstack_meta_is_the_tools():
                                   _tool_meta(3, 12, 4))
 
 
-def test_sstack_matches_the_tpu_full_variant(interpret):
-    S, Q_pad, C, per_block, B = 2, 16, 4, 2, 128
-    A_PAD = pk.A_PAD
+@functools.lru_cache(maxsize=None)
+def _tpu_sstack(S, Q_pad, zero_letters=False):
+    """(qp, letters, meta, nb, [S, nb, B] emitted rows) of the TPU tool's
+    `full` variant in interpret mode: S stacked streams of C chunks, B
+    lanes (all letters 0 with zero_letters)."""
+    C, per_block, B = 4, 2, 128
     tool = _tool("exp_sstack_ablate")
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(S * Q_pad)
     nb = C // per_block + 2
     meta = _tool_meta(S, C, per_block)
     letters = rng.integers(0, 20, size=(C, S * pk.T_CHUNK, B)).astype(
         np.int8)
-    qp = rng.integers(-4, 12, size=(Q_pad, A_PAD)).astype(np.float32)
+    qp = rng.integers(-4, 12, size=(Q_pad, pk.A_PAD)).astype(np.float32)
+    run = np.zeros_like(letters) if zero_letters else letters
     qp_bd = np.einsum("qa,st->sqat", qp, np.eye(S, dtype=np.float32)
-                      ).reshape(S * Q_pad, A_PAD * S)
-    outs = tool.build_variant("full", S, Q_pad, B)(
-        jnp.asarray(meta), jnp.asarray(qp_bd, jnp.bfloat16),
-        jnp.asarray(letters), nb)
-    want = np.stack([np.asarray(o)[:, 0] for o in outs])  # [S, nb, B]
+                      ).reshape(S * Q_pad, pk.A_PAD * S)
+    with pytest.MonkeyPatch.context() as mp:
+        _interpret_pallas(mp)
+        outs = tool.build_variant("full", S, Q_pad, B)(
+            jnp.asarray(meta), jnp.asarray(qp_bd, jnp.bfloat16),
+            jnp.asarray(run), nb)
+    return qp, letters, meta, nb, np.stack([np.asarray(o)[:, 0]
+                                            for o in outs])
+
+
+@pytest.mark.parametrize("kind, S_tpu, Q_pad", [
+    ("lanes", 2, 16), ("lanes", 4, 32), ("noprof", 4, 32), ("s1ctl", 4, 32)])
+def test_sstack_matches_the_tpu_full_variant(kind, S_tpu, Q_pad):
+    """The three plain functions against the TPU `full` variant: lanes<S>'
+    and strips2's on S_tpu stacked streams; noprof's against `full` on
+    letters that are all 0; s1ctl's (the query tiled S_tpu times against
+    stream 0) against `full` on one stream of the tiled query."""
+    qp, letters, meta, nb, want = _tpu_sstack(S_tpu, Q_pad,
+                                              kind == "noprof")
     profile, stream, meta_t = port_sstack.inputs(qp, letters, meta, 1, "cpu")
-    emitted = sorted({int(meta[5 * s, c]) for s in range(S)
-                      for c in range(C) if meta[5 * s + 2, c] == 1})
+    emitted = sorted({int(meta[5 * s, c]) for s in range(S_tpu)
+                      for c in range(meta.shape[1])
+                      if meta[5 * s + 2, c] == 1})
     assert emitted == [0, 1]
-    for lanes in (1, 2):
-        got = port_sstack.sstack_score(profile, stream, meta_t, nb, lanes)
-        assert got.shape == (S, nb, B)
-        np.testing.assert_array_equal(got.numpy()[:, emitted],
-                                      want[:, emitted])
+    if kind == "s1ctl":
+        profile, stream, meta_t = port_sstack.s1ctl_inputs(
+            profile, stream, meta_t, S_tpu)
+        tiled = np.tile(qp, (S_tpu, 1))
+        tool = _tool("exp_sstack_ablate")
+        with pytest.MonkeyPatch.context() as mp:
+            _interpret_pallas(mp)
+            out = tool.build_variant("full", 1, S_tpu * Q_pad, 128)(
+                jnp.asarray(meta[:5]), jnp.asarray(tiled, jnp.bfloat16),
+                jnp.asarray(letters[:, :pk.T_CHUNK]), nb)
+        want = np.stack([np.asarray(out[0])[:, 0]])
+    got = port_sstack.sstack_score(profile, stream, meta_t, nb,
+                                   noprof=kind == "noprof")
+    assert got.shape == (want.shape[0], nb, 128)
+    np.testing.assert_array_equal(got.numpy()[:, emitted],
+                                  want[:, emitted])
 
 
 def test_sstack_plain_variants_agree():
@@ -321,4 +389,14 @@ def test_wrappers_refuse_bad_input():
     with pytest.raises(ValueError):
         port_sstack.sstack_score(profile, stream, meta[:5], nb, 1)
     with pytest.raises(ValueError):
+        port_sstack.sstack_score(profile, stream, meta, nb, 2, strips2=True)
+    with pytest.raises(ValueError):
+        port_sstack.sstack_score(profile, stream, meta, nb, 1, G=3)
+    with pytest.raises(ValueError):
         port_unroll.unroll_score(profile, stream, "base")  # two blocks
+    one = port_unroll.random_stream(8, 64, 0, "cpu")
+    prof, _ = port_unroll.random_profile(32, device="cpu")
+    with pytest.raises(ValueError):
+        port_unroll.unroll_score(prof, one, "base", G=16)
+    with pytest.raises(ValueError):
+        port_unroll.unroll_score(prof, one, "r16")
