@@ -45,9 +45,16 @@ the last line:
              files, result lines and alignment blocks of the 6 x2 files;
 6. main    - the single-query path at full scale: O74807 (SW, score,
              BLOSUM50, gaps 3/1) against 541,762 synthetic sequences held
-             resident, through search_database_arrays; ragged_dp's ms per
-             launch and the launch plan's G per block; then ragged_dp
-             against the plain version on blocks of that database;
+             resident, through search_database_arrays, timed by the bench's
+             protocol (opal_tpu_torch.bench.measure: 11 or 17 runs, the
+             kernel alone, the idle share, the 48-sequence gate);
+             ragged_dp's ms per launch and the launch plan's G per block;
+             then ragged_dp against the plain version on blocks of that
+             database;
+6b. bench  - python -m opal_tpu_torch.bench at its defaults in a fresh
+             process: its lines checked (the four keys of the last, value
+             above 0, ragged_dp launched, no plain call, the gate) and
+             printed beside phase 6's GCUPS;
 7. serve   - the serving path on the same resident database:
              opal_tpu_torch.serve.Server answers the 15 queries of
              tests/port_data/uniprot_sprot15.fasta as one batch request
@@ -999,9 +1006,10 @@ def full_scale_server(sm):
 def phase_main(sm, engine, ddb, setup_s, smi):
     import torch
 
+    from opal_tpu_torch import bench
     from opal_tpu_torch.constants import MODE_OV, MODE_SW, SEARCH_SCORE
     from opal_tpu_torch.engine import kernels
-    from opal_tpu_torch.engine.search import Engine, search_database_arrays
+    from opal_tpu_torch.engine.search import search_database_arrays
     from opal_tpu_torch.fasta import read_fasta_file
 
     lut = sm.letter_index()
@@ -1012,44 +1020,34 @@ def phase_main(sm, engine, ddb, setup_s, smi):
     query = qs[0]
     Q = len(query)
 
-    def search(mode=MODE_SW, x=SEARCH_SCORE):
-        t = time.perf_counter()
-        out = search_database_arrays(query, ddb, 3, 1, sm.matrix, mode=mode,
-                                     search_type=x, engine=engine)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t, out
-
-    search()  # warm-up
-    kernels.reset_counts()
-    runs = [search() for _ in range(5)]
-    launches = kernels.LAUNCHES["ragged_dp"]
-    plain_calls = kernels.PLAIN_CALLS["ragged_score_plain"]
-    best = min(t for t, _ in runs)
-    out = runs[0][1]["score"]
-    check(launches > 0, "main path launched no ragged_dp")
-    check(plain_calls == 0, "main path ran the plain version")
+    # bench.py's protocol, as the bench runs it (it sets the counts to 0
+    # after its warm-up and reads them after the timed runs), with its
+    # 48-sequence gate against the plain version on the CPU
+    m = bench.measure(query, ddb, engine, sm)
+    out = m["scores"]
+    check(m["launches"] > 0, "main path launched no ragged_dp")
+    check(m["plain_calls"] == 0, "main path ran the plain version")
     check(out.shape == (len(db),) and out.dtype == np.int32
           and int(out.min()) >= 0, "SW scores malformed")
-    check(all(np.array_equal(r[1]["score"], out) for r in runs),
-          "repeated searches differ")
-
-    # a seeded sample of the database, searched on the CPU (plain version)
-    pick = np.random.default_rng(7).choice(len(db), 48, replace=False)
-    cpu = search_database_arrays(query, [db[i] for i in pick], 3, 1,
-                                 sm.matrix,
-                                 engine=Engine(device="cpu", block_size=64))
-    check(np.array_equal(cpu["score"], out[pick]),
+    check(m["runs_differ"] == 0, "repeated searches differ")
+    check(m["gate_mismatches"] == 0,
           "full-scale scores differ from the CPU plain version")
 
-    x1_s, _ = search(MODE_SW, 1)
-    ov_s, _ = search(MODE_OV, 1)
+    def search(mode, x):
+        t = time.perf_counter()
+        search_database_arrays(query, ddb, 3, 1, sm.matrix, mode=mode,
+                               search_type=x, engine=engine)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
 
-    # the kernel alone at the main path's shapes, then against its plain
-    # version on blocks of this database (every 24th block and the last)
+    x1_s = search(MODE_SW, 1)
+    ov_s = search(MODE_OV, 1)
+
+    # the kernel against its plain version on blocks of this database
+    # (every 24th block and the last)
     profile = engine._backend.prepare_query(
         sm.matrix[query.astype(np.int64)].T, 3, 1)
-    kernel_ms = time_cuda(lambda: kernels.ragged_score(
-        profile, ddb.stream, MODE_SW, SEARCH_SCORE, 3, 1), 5)
+    kernel_ms = m["kernel_ms"]
     plan = kernels.plan_for(ddb.stream, -(-Q // kernels.STRIP_ROWS))
     split = launch_split(lambda ev: kernels.ragged_score(
         profile, ddb.stream, MODE_SW, SEARCH_SCORE, 3, 1, events=ev))
@@ -1080,10 +1078,15 @@ def phase_main(sm, engine, ddb, setup_s, smi):
     res = {
         "phase": "main", "sequences": len(db), "residues": total,
         "query": "O74807", "Q": Q, "setup_s": round(setup_s, 1),
-        "search_s": [round(t, 6) for t, _ in runs], "best_s": best,
-        "gcups": total * Q / best / 1e9,
-        "launches": launches, "launches_per_search": launches / len(runs),
-        "plain_calls": plain_calls, "sw_x1_s": x1_s, "ov_x1_s": ov_s,
+        "search_s": m["runs_s"], "best_s": m["best_s"],
+        "median_s": m["median_s"], "max_over_min": m["max_over_min"],
+        "gcups": m["gcups"], "launches": m["launches"],
+        "launches_per_search": m["launches_per_search"],
+        "plain_calls": m["plain_calls"], "gate_seqs": m["gate_seqs"],
+        "host_ms": m["host_ms"],
+        "max_memory_allocated_bytes": m["max_memory_allocated_bytes"],
+        "device_idle_share": m["device_idle_share"],
+        "sw_x1_s": x1_s, "ov_x1_s": ov_s,
         "kernel_ms": kernel_ms, "kernel_gcups": cells / kernel_ms / 1e6,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -1097,6 +1100,38 @@ def phase_main(sm, engine, ddb, setup_s, smi):
         "tolerance": 0,
         "card": smi,
     }
+    emit(res)
+    return res
+
+
+def phase_bench(main_res, smi):
+    """python -m opal_tpu_torch.bench at its defaults in a fresh process
+    (after the build, so it loads the libraries built and never waits on
+    the build's lock): its lines, checked, beside phase_main's
+    in-process numbers; no gate on their ratio."""
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BENCH_SEQS", "BENCH_BLOCK")}
+    r = subprocess.run([sys.executable, "-m", "opal_tpu_torch.bench"],
+                       cwd=HERE, env=env, capture_output=True, text=True,
+                       timeout=600)
+    check(r.returncode == 0, f"the bench exited {r.returncode}: "
+          f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    lines = [json.loads(ln) for ln in r.stdout.splitlines() if ln.strip()]
+    last = lines[-1]
+    by = {ln["bench"]: ln for ln in lines[:-1]}
+    check(list(last) == ["metric", "value", "unit", "vs_baseline"],
+          f"the bench's last line {last}")
+    check(last["value"] > 0, f"the bench's value {last['value']}")
+    check(by["launches"]["ragged_dp_per_search"] >= 1,
+          "the bench launched no ragged_dp")
+    check(by["launches"]["plain_calls"] == 0,
+          "the bench ran the plain version")
+    check(by["gate"]["mismatches"] == 0, "the bench's gate failed")
+    res = {"phase": "bench", "seconds": time.perf_counter() - t0,
+           "last": last, "lines": by,
+           "main_gcups": main_res["gcups"], "main_best_s": main_res["best_s"],
+           "main_kernel_ms": main_res["kernel_ms"], "card": smi}
     emit(res)
     return res
 
@@ -1520,6 +1555,7 @@ def phase_cli(sm, srv, ascii_db, smi):
     from opal_tpu_torch.engine.search import search_database
     from opal_tpu_torch.ranking import rank_scores
     from opal_tpu_torch.render import result_line
+    from opal_tpu_torch.tools import idle_share
 
     query = _o74807(sm)
     qpath = os.path.join(HERE, "tests", "port_data", "O74807.fasta")
@@ -2285,8 +2321,9 @@ def phase_host_tools(sm, srv, smi):
     from opal_tpu_torch.fasta import read_fasta_file
     from opal_tpu_torch.tools import (exp_align_topk, exp_panel_mesh,
                                       exp_panel_rows, exp_panels, exp_topk,
-                                      exp_x1_gap, perf, port_query,
-                                      serve_latency, serve_qps, tb_scaling)
+                                      exp_x1_gap, idle_share, perf,
+                                      port_query, serve_latency, serve_qps,
+                                      tb_scaling)
 
     t_phase = time.perf_counter()
     lut = sm.letter_index()
@@ -2725,31 +2762,6 @@ def phase_device_fill(sm, srv, gold, ceil, smi, ptxas):
     return res
 
 
-def idle_share(trace_path):
-    """The card's busy and idle share within a torch.profiler Chrome trace:
-    the union of kernel intervals over the span from the first to the last
-    event of the trace."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
-             if e.get("ph") == "X" and "ts" in e]
-    kern = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                  if e.get("ph") == "X" and e.get("cat") == "kernel")
-    check(kern, f"{trace_path}: no kernel in the trace")
-    busy, cur_s, cur_e = 0.0, None, None
-    for a, b in kern:
-        if cur_e is None or a > cur_e:
-            busy += 0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy += cur_e - cur_s
-    window = max(b for _, b in spans) - min(a for a, _ in spans)
-    return {"trace_window_ms": window / 1e3, "kernel_busy_ms": busy / 1e3,
-            "kernels_in_trace": len(kern),
-            "device_idle_share": 1 - busy / window}
-
-
 def main():
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "opal_tpu_torch")):
@@ -2807,6 +2819,7 @@ def main():
     gold = phase_goldens(sm, gold_engine) + (gold_engine,)
     srv, ascii_db, setup_s = full_scale_server(sm)
     main_res = phase_main(sm, srv.engine, srv.ddb, setup_s, smi)
+    phase_bench(main_res, smi)
     serve_res = phase_serve(srv, smi)
     casc = phase_cascade(sm, srv.engine, srv.ddb, smi)
     phase_serve_align(srv, smi)

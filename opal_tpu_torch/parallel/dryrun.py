@@ -1,6 +1,7 @@
-"""The multi-device dry run (the counterpart of opal_tpu's
-__graft_entry__.dryrun_multichip): every sharded path of the port, once,
-on tiny shapes, against the scalar oracle.
+"""The entry points of __graft_entry__.py on the port: entry(), the
+single-block compile check, and dryrun_multichip, the multi-device dry run
+(every sharded path of the port, once, on tiny shapes, against the scalar
+oracle).
 
     python -m opal_tpu_torch.parallel.dryrun N [--device cuda|cpu]
 
@@ -52,6 +53,38 @@ from ..engine.search import (
 )
 from ..oracle import search_oracle
 from .shard import db_mesh, sharded_score_step
+
+
+def entry(device="cuda"):
+    """(fn, example_args): one SW score + end block, __graft_entry__.entry's
+    check on the port. The args are drawn as that entry draws them, from
+    np.random.default_rng(0), as tensors on `device`: qprofile [24, 110]
+    int32 in [-5, 13) (the [A, Q] profile, matrix[query].T), letters
+    [256, 128] int8 in [0, 24) and lengths [1, 128] int32 in [32, 256].
+    fn(qprofile, letters, lengths) scores the block at gaps 3/1 through
+    kernels.grouped_score (ragged_dp's grouped role on the card) and
+    returns {"score", "end_q", "end_t"}, each [128] int32. Runs on the
+    card unless device="cpu"; without CUDA the default raises."""
+    dev = resolve_device(device)
+    Q, B, T = 110, 128, 256
+    rng = np.random.default_rng(0)
+    qprofile = torch.as_tensor(rng.integers(-5, 13, size=(24, Q)),
+                               dtype=torch.int32, device=dev)
+    letters = torch.as_tensor(rng.integers(0, 24, size=(T, B)),
+                              dtype=torch.int8, device=dev)
+    lengths = torch.as_tensor(rng.integers(32, T + 1, size=(1, B)),
+                              dtype=torch.int32, device=dev)
+
+    def fn(qprofile, letters, lengths):
+        profile = torch.from_numpy(kernels.build_profile(
+            qprofile.cpu().numpy())).to(qprofile.device)
+        tr = kernels.grouped_score(profile, letters[None], lengths, MODE_SW,
+                                   SEARCH_SCORE_END, 3, 1)
+        cols = kernels.finalize_device(tr, lengths, MODE_SW,
+                                       SEARCH_SCORE_END, qprofile.shape[1])
+        return {k: cols[k][0] for k in ("score", "end_q", "end_t")}
+
+    return fn, (qprofile, letters, lengths)
 
 
 def _check(cond, what):

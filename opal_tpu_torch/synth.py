@@ -1,10 +1,17 @@
-"""Deterministic synthetic protein database at benchmark scale.
+"""Deterministic synthetic protein database, in FASTA or at benchmark scale.
 
-A copy of tools/make_synth_db.py::make_db_arrays (numpy only): a
-Swiss-Prot-like length distribution (lognormal, median ~290, clipped to
-[30, 5000]) and natural amino-acid frequencies, one draw stream per seed.
+A copy of tools/make_synth_db.py (numpy only): a Swiss-Prot-like length
+distribution (lognormal, median ~290, clipped to [30, 5000]) and natural
+amino-acid frequencies, one draw stream per seed. make_db and write_fasta
+write the same bytes as that tool (tests/data/synth12071.fasta.gz is
+make_db(12071, 12071)); make_db_arrays is the vectorized generator the
+bench and the tools hold resident.
+
+    python -m opal_tpu_torch.synth OUT.fasta [n_seqs] [seed]
 """
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 
@@ -18,9 +25,23 @@ FREQ = np.array([
 FREQ = FREQ / FREQ.sum()
 
 
+def make_db(n_seqs: int = 12071, seed: int = 12071):
+    """n_seqs sequences as strings, one rng.choice draw per sequence."""
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(
+        rng.lognormal(mean=5.67, sigma=0.65, size=n_seqs), 30, 5000
+    ).astype(int)
+    seqs = []
+    for L in lengths:
+        idx = rng.choice(len(AA), size=int(L), p=FREQ)
+        seqs.append("".join(AA[i] for i in idx))
+    return seqs
+
+
 def make_db_arrays(n_seqs: int = 541762, seed: int = 541762):
     """List of uint8 ASCII arrays (map through ScoreMatrix.letter_index()
-    for engine input); ~1.93e8 residues at the default n."""
+    for engine input); ~1.93e8 residues at the default n. Same length and
+    composition distributions as make_db, but another draw stream."""
     rng = np.random.default_rng(seed)
     lengths = np.clip(
         rng.lognormal(mean=5.67, sigma=0.65, size=n_seqs), 30, 5000
@@ -31,3 +52,28 @@ def make_db_arrays(n_seqs: int = 541762, seed: int = 541762):
     residues = aa_codes[np.searchsorted(cum, rng.random(total))]
     bounds = np.cumsum(lengths)[:-1]
     return np.split(residues, bounds)
+
+
+def write_fasta(path: str, seqs):
+    """`>synth|{i:06d} synthetic sequence len={L}` headers, 60 residues a
+    line."""
+    with open(path, "w") as f:
+        for i, s in enumerate(seqs):
+            f.write(f">synth|{i:06d} synthetic sequence len={len(s)}\n")
+            for j in range(0, len(s), 60):
+                f.write(s[j : j + 60] + "\n")
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    out = argv[0] if len(argv) > 0 else "synth12071.fasta"
+    n = int(argv[1]) if len(argv) > 1 else 12071
+    seed = int(argv[2]) if len(argv) > 2 else 12071
+    seqs = make_db(n, seed)
+    write_fasta(out, seqs)
+    print(f"{out}: {len(seqs)} sequences, {sum(map(len, seqs))} residues")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

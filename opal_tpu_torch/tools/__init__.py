@@ -18,8 +18,9 @@ small size and reports no time.
 
 This module holds what they share: the launch counts, the library loader,
 CUDA-event timing, the SM clock sampled while a probe runs, the SASS
-opcode counts of a built library, the test queries, the synthetic
-database, and the one output line.
+opcode counts of a built library, the card's idle share in a profiler
+trace, the test queries, the synthetic database, and the one output
+line.
 """
 from __future__ import annotations
 
@@ -155,6 +156,32 @@ def cell_bound_ms(cells: int, maxes: float = CELL_MAXES) -> float:
     clock."""
     mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     return cells * maxes / (ALU_PER_SM_CLK * sm_count() * mhz * 1e6) * 1e3
+
+
+def idle_share(trace_path) -> dict:
+    """The card's busy and idle share within a torch.profiler Chrome trace:
+    the union of kernel intervals over the span from the first to the last
+    event of the trace. Raises if the trace holds no kernel."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("ph") == "X" and "ts" in e]
+    kern = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("ph") == "X" and e.get("cat") == "kernel")
+    if not kern:
+        raise RuntimeError(f"{trace_path}: no kernel in the trace")
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in kern:
+        if cur_e is None or a > cur_e:
+            busy += 0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    window = max(b for _, b in spans) - min(a for a, _ in spans)
+    return {"trace_window_ms": window / 1e3, "kernel_busy_ms": busy / 1e3,
+            "kernels_in_trace": len(kern),
+            "device_idle_share": 1 - busy / window}
 
 
 def sass(name: str, csrc: Path = CSRC) -> dict:

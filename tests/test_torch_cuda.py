@@ -808,3 +808,39 @@ def test_keepalive_on_card(cuda):
         stop()
     mine[0].join(5)
     assert not mine[0].is_alive()
+
+
+def test_bench_on_card(cuda, monkeypatch, capsys):
+    """python -m opal_tpu_torch.bench at 20,000 sequences: every search
+    launched ragged_dp, the plain version never ran, the 48-sequence gate
+    passed, and the last line is bench.py's four keys."""
+    import json
+
+    from opal_tpu_torch import bench
+
+    monkeypatch.setenv("BENCH_SEQS", "20000")
+    monkeypatch.delenv("BENCH_BLOCK", raising=False)
+    assert bench.main([]) == 0
+    lines = [json.loads(ln) for ln in
+             capsys.readouterr().out.strip().splitlines()]
+    by = {ln["bench"]: ln for ln in lines[:-1]}
+    assert by["launches"]["ragged_dp_per_search"] >= 1
+    assert by["launches"]["plain_calls"] == 0
+    assert by["gate"]["sample"] == 48 and by["gate"]["mismatches"] == 0
+    assert 0 <= by["idle"]["device_idle_share"] < 1
+    assert list(lines[-1]) == ["metric", "value", "unit", "vs_baseline"]
+    assert lines[-1]["value"] > 0
+
+
+def test_entry_on_card_matches_cpu(cuda):
+    from opal_tpu_torch.parallel.dryrun import entry
+
+    before = kernels.LAUNCHES["ragged_dp_grouped"]
+    fn, args = entry()
+    assert all(a.device.type == "cuda" for a in args)
+    got = fn(*args)
+    assert kernels.LAUNCHES["ragged_dp_grouped"] > before
+    fn_cpu, args_cpu = entry(device="cpu")
+    want = fn_cpu(*args_cpu)
+    for k in ("score", "end_q", "end_t"):
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=0, atol=0)

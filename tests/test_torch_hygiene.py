@@ -48,6 +48,7 @@ def test_package_import_pulls_in_no_jax():
             "import opal_tpu_torch.cli, opal_tpu_torch.serve; "
             "import opal_tpu_torch.engine.cascade; "
             "import opal_tpu_torch.traceback, opal_tpu_torch.checkpoint; "
+            "import opal_tpu_torch.bench, opal_tpu_torch.synth; "
             "import opal_tpu_torch.tools.roofline, "
             "opal_tpu_torch.tools.exp_unroll, "
             "opal_tpu_torch.tools.exp_sstack_ablate, "
