@@ -35,7 +35,8 @@ the last line:
              rows at every G (kernels.MAX_GROUP 1-8, passes past the first
              through scratch), every G in one launch, SW ends and OV
              last-column maxima tied across strips of different threads,
-             multi_dp segments that start mid-pass; exact;
+             multi_dp segments (strips of 32 rows) that start mid-pass;
+             exact;
 4c. soak    - opal_tpu_torch.tools.soak: 120 random problems (alphabets,
              matrices with entries near the int32 bound, gap pairs with
              ge > go and 0/0, query lengths, adversarial length mixes)
@@ -131,7 +132,7 @@ the last line:
              answers; its curve cut to 1 and 16 clients), serve_latency
              (8 warm requests, without and with align, the card's idle
              share over the warm ones from a torch.profiler trace), one
-             request after a 20 s idle gap without and with
+             request after a 10 s idle gap without and with
              Server.start_keepalive(5), exp_x1_gap (P18080 and O74807 in 4
              modes, the x1 search split at each synchronize), exp_topk,
              exp_align_topk (top 1,000 of a 513-residue query), perf (4
@@ -763,7 +764,7 @@ def phase_kernel_mapping(matrix, dev):
                 bad, err = compare(prof(query, m), stream, mode, 1, 2, 1)
                 tally("ties", bad, err, mode=mode, max_group=max_group)
     # multi_dp: segments that start mid-pass at every G
-    segs = (5, 40, 16, 17, 33, 2, 64, 1)  # 1,3,1,2,3,1,4,1 strips
+    segs = (5, 40, 16, 17, 33, 2, 64, 1)  # 1,2,1,1,2,1,2,1 strips
     query, db, m = planted(rng, sum(segs), 300)
     cuts = np.cumsum((0,) + segs)
     mprof, seg_qs = multi_profile(
@@ -807,10 +808,11 @@ def phase_kernel_multi(matrix, dev):
     rng = np.random.default_rng(2025)
     A = matrix.shape[0]
     mixed = [3, 60, 16, 513, 33, 2, 200, 47]
+    padded = [1, 33, 31, 2, 64]  # 32-row strips that are mostly padding
     # (gaps, segment sets, longest target): the plain version's cost grows
     # with segments x columns, and its row loop (gap_ext > gap_open) is slow
     plan = (((3, 1), ([1, 37], [16, 17, 110], mixed), 1000),
-            ((2, 2), ([16, 17, 110], mixed), 500),
+            ((2, 2), ([16, 17, 110], mixed, padded), 500),
             ((0, 0), ([16, 17, 110], mixed), 500),
             ((1, 3), ([1, 37],), 200))
     n_cases = mismatches = max_err = 0
@@ -1306,8 +1308,8 @@ def phase_serve(srv, smi):
     multi_split = launch_split(lambda ev: kernels.multi_score(
         profile, seg_qs, ddb.stream, MODE_SW, SEARCH_SCORE, 3, 1,
         events=ev))
-    multi_plan = kernels.plan_for(ddb.stream,
-                                  profile.shape[0] // kernels.STRIP_ROWS)
+    multi_plan = kernels.plan_for(
+        ddb.stream, profile.shape[0] // kernels.MULTI_STRIP_ROWS)
     singles = [engine._backend.prepare_query(matrix[q.astype(np.int64)].T,
                                              3, 1) for q in group]
     ragged_sum_ms = sum(time_cuda(lambda p=p: kernels.ragged_score(
@@ -2343,7 +2345,7 @@ TOOL_KERNELS = {
 }
 # seconds the card is left idle before one request, without and with the
 # keepalive (beating every KEEPALIVE_S)
-IDLE_GAP_S, KEEPALIVE_S = 20.0, 5.0
+IDLE_GAP_S, KEEPALIVE_S = 10.0, 5.0
 # the host tools' own protocol sizes where they bring their own data
 TOOL_SIZES = {"tb_pairs": 4000, "mesh_q": 16000, "mesh_seqs": 3000,
               "panel_seqs": 8000, "panel_qlens": (6000, 16000, 34000, 65000,
@@ -2819,7 +2821,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from opal_tpu_torch.engine import _build
+    from opal_tpu_torch.engine import _build, kernels
     from opal_tpu_torch.engine.search import Engine
     from opal_tpu_torch.matrices import ScoreMatrix
 
@@ -2919,6 +2921,8 @@ def main():
         "ms": serve_res["multi_dp_group_ms"],
         "ms_at": f"one group of 8 queries ({sum(serve_res['group_segments'])}"
                  f" rows) x the whole database",
+        "strip_rows": kernels.MULTI_STRIP_ROWS,
+        "ptxas": ptxas_summary(log["multi_dp"]["log"]),
         "plain_ms": serve_res["sub_plain_ms"],
         "plain_at": f"the same group x {serve_res['sub_blocks']} of the "
                     f"{serve_res['blocks']} blocks",

@@ -13,8 +13,9 @@
 // chain, so every gap pair runs.
 //
 // Design: ragged_dp's strip groups (strip_group.cuh, and ragged_dp.cu's
-// header), over the strips of the STACKED profile: the G threads of a
-// lane's group sweep G consecutive stacked strips per pass, thread g - 1
+// header), over the strips of the STACKED profile, each MR = 32 rows high
+// (ragged_dp's are 16): the G threads of a lane's group sweep G
+// consecutive stacked strips per pass, thread g - 1
 // handing each column's last row to thread g by shuffle, the last thread
 // of a pass to the next pass through scratch. The plan (kernels.plan_launch)
 // picks G per database block from its longest lane and launches the whole
@@ -28,10 +29,18 @@
 // thread 0 of the group writes that segment's final values.
 //
 // What bounds it on the H100: as for ragged_dp, integer issue along each
-// column's 16-row chain, and the fill. The stacked query is tall (~74
-// strips for 8 typical queries), so the longest lanes' chains decide the
-// launch unless G spreads them. Against N ragged_dp launches it saves N-1
-// launches and their tails, not DP work.
+// column's chain, and the fill. The stacked query is tall (~75 strips of
+// 32 rows for 8 queries of ~300 residues), so the longest lanes' chains
+// decide the launch unless G spreads them. Strips of 32 rows halve what a
+// strip costs per cell beside its DP: the scratch hand-off after every
+// pass (an int2 read and write per lane and column), the profile's
+// staging per pass, the G - 1 steps of lag per pass and the shuffles per
+// column: a group of 8 served queries ran 22 % faster than at 16 rows on
+// an H100 (PERF.md). They cost registers (SW x0: 96 a thread and 5 CUDA
+// blocks an SM, against 72 at 16 rows; HW and OV ~145 and 3) and padding
+// rows (a segment rounds up to 32 rows: 1-2 % more cells for 8 queries of
+// 60-948 residues). Against N ragged_dp launches it saves N-1 launches and
+// their tails, not DP work.
 
 #include "strip_group.cuh"
 
@@ -40,9 +49,11 @@ namespace {
 using namespace sg;
 
 constexpr int MAX_SEGS = 8;    // == MULTI_MAX_SEGS
+constexpr int MR = 2 * R;      // query rows per strip (== MULTI_STRIP_ROWS)
+constexpr int MRS = MR + 1;    // shared-memory stride per letter (odd)
 
 struct Args {
-  const int* profile;         // [n_strips * R, W] int32, segments stacked
+  const int* profile;         // [n_strips * MR, W] int32, segments stacked
   const int8_t* letters;      // blocks back to back, [t4, B, 4] each
   const long long* offsets;   // [NB + 1] byte offset of each block
   const int* lengths;         // [NB, B]
@@ -58,7 +69,7 @@ struct Args {
 
 template <int MODE, bool END>
 __global__ void __launch_bounds__(THREADS) multi_dp_kernel(Args a) {
-  extern __shared__ int sprof[];  // [G][W][RS]
+  extern __shared__ int sprof[];  // [G][W][MRS]
   const Job job = a.jobs[blockIdx.x];
   const int blk = job.blk;
   const int G = a.groups[blk];
@@ -85,21 +96,21 @@ __global__ void __launch_bounds__(THREADS) multi_dp_kernel(Args a) {
   int nw = NEG;                          // NW
 
   for (int p = 0; p < passes; ++p) {
-    stage_profile(sprof, a.profile, p * G * R, ns * R, G, W);
+    stage_profile<MR>(sprof, a.profile, p * G * MR, ns * MR, G, W);
     const int s = p * G + g;  // this thread's stacked strip
     const bool mine = s < ns;
     int seg = 0;
     while (seg + 1 < n_seg && a.seg_first[seg + 1] <= s) ++seg;
     const int Q = a.seg_q[seg];
-    const int r0 = (s - a.seg_first[seg]) * R;  // row within the segment
+    const int r0 = (s - a.seg_first[seg]) * MR;  // row within the segment
     const bool last = s == a.seg_first[seg + 1] - 1;
     const int jl = Q - 1 - r0;
     const bool put = mine && g == G - 1 && !last && s + 1 < ns;
     // a segment's first strip takes the wall, never a neighbour's row
     const int src = r0 == 0 ? SRC_WALL : g > 0 ? SRC_SHUFFLE : SRC_SCRATCH;
-    const StripOut o = sweep<MODE, END, false>(
-        sprof + g * W * RS, lw, scr, B, len, steps, G, g, mine, src, put,
-        last, r0, jl, R - 1, go, ge, fl);
+    const StripOut o = sweep<MODE, END, false, Body<MR>>(
+        sprof + g * W * MRS, lw, scr, B, len, steps, G, g, mine, src, put,
+        last, r0, jl, MR - 1, go, ge, fl);
 
     // merge this pass's strips in strip order
     int seg2 = 0;
@@ -151,12 +162,17 @@ int launch(const Args& a, int n_jobs, size_t smem, cudaStream_t stream) {
   return launch_kernel(multi_dp_kernel<MODE, END>, a, n_jobs, smem, stream);
 }
 
+template <int MODE, bool END>
+int attrs(size_t smem, int* out) {
+  return kernel_attrs(multi_dp_kernel<MODE, END>, smem, out);
+}
+
 }  // namespace
 
 // Launches the kernel over the plan's n_jobs CUDA blocks (jobs, groups,
 // scr_off and max_g as for ragged_dp_launch). seg_q holds n_seg (1..8)
 // query lengths; the profile stacks the segments, each padded to
-// ceil(Q / 16) * 16 rows. Returns a cudaError_t (0 on success).
+// ceil(Q / 32) * 32 rows. Returns a cudaError_t (0 on success).
 extern "C" int multi_dp_launch(const void* profile, const void* letters,
                                const void* offsets, const void* lengths,
                                const void* jobs, const void* groups,
@@ -181,10 +197,10 @@ extern "C" int multi_dp_launch(const void* profile, const void* letters,
   for (int s = 0; s < n_seg; ++s) {
     if (seg_q[s] < 1) return (int)cudaErrorInvalidValue;
     a.seg_q[s] = seg_q[s];
-    a.seg_first[s + 1] = a.seg_first[s] + (seg_q[s] + R - 1) / R;
+    a.seg_first[s + 1] = a.seg_first[s] + (seg_q[s] + MR - 1) / MR;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(max_g, W);
+  const size_t smem = smem_bytes<MR>(max_g, W);
   int err;
   const bool e = track_end != 0;
   switch (mode) {
@@ -199,4 +215,27 @@ extern "C" int multi_dp_launch(const void* profile, const void* letters,
     default: return (int)cudaErrorInvalidValue;
   }
   return err ? err : (int)cudaGetLastError();
+}
+
+// out[3]: resident CUDA blocks per SM of the kernel of this mode and depth
+// at a largest group of max_g and profile width W, its registers and local
+// (spill) bytes per thread (sg::kernel_attrs). Returns a cudaError_t (0 on
+// success).
+extern "C" int multi_dp_attrs(int mode, int track_end, int max_g, int W,
+                              int* out) {
+  if (W > MAX_W || W < 1 || max_g < 1 || max_g > MAX_G)
+    return (int)cudaErrorInvalidValue;
+  const size_t sm = smem_bytes<MR>(max_g, W);
+  const bool e = track_end != 0;
+  switch (mode) {
+    case MODE_NW: return e ? attrs<MODE_NW, true>(sm, out)
+                           : attrs<MODE_NW, false>(sm, out);
+    case MODE_HW: return e ? attrs<MODE_HW, true>(sm, out)
+                           : attrs<MODE_HW, false>(sm, out);
+    case MODE_OV: return e ? attrs<MODE_OV, true>(sm, out)
+                           : attrs<MODE_OV, false>(sm, out);
+    case MODE_SW: return e ? attrs<MODE_SW, true>(sm, out)
+                           : attrs<MODE_SW, false>(sm, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -40,16 +40,18 @@ struct Job {
   int blk, lane0;
 };
 
-// Dynamic shared memory of a launch whose largest group is max_g.
+// Dynamic shared memory of a launch whose largest group is max_g, its
+// strips RR rows high.
+template <int RR = R>
 inline size_t smem_bytes(int max_g, int W) {
-  return (size_t)max_g * W * RS * sizeof(int);
+  return (size_t)max_g * W * (RR + 1) * sizeof(int);
 }
 
 // Stage the profile rows [prow0, prow0 + G * RR) into
 // sprof[g][letter][row] (rows at or past q_end hold PAD_NEG), in strips of
-// RR rows (R, except in the probes). Consecutive threads read consecutive
-// letters of one row and write with stride RR + 1 (odd): no bank conflict
-// either way. Every thread of the CUDA block calls it.
+// RR rows (R; 2 R in multi_dp and some probes). Consecutive threads read
+// consecutive letters of one row and write with stride RR + 1 (odd): no
+// bank conflict either way. Every thread of the CUDA block calls it.
 template <int RR = R>
 __device__ __forceinline__ void stage_profile(int* sprof, const int* profile,
                                               int prow0, int q_end, int G,
@@ -78,10 +80,10 @@ struct Flags {
   int ulhp, mine, minf, maxh;
 };
 
-// The column body of a sweep (its V). ragged_dp and multi_dp run the
-// default; the probes of opal_tpu_torch/tools/csrc ablate the others on
-// the same wavefront, SW score-only:
-//   RR      - query rows per strip;
+// The column body of a sweep (its V). ragged_dp runs the default and
+// multi_dp the default at RR = 2 R; the probes of opal_tpu_torch/tools/csrc
+// ablate the others on the same wavefront, SW score-only:
+//   RR      - query rows per strip (R, or 2 R in every mode without FLAGS);
 //   DPX     - E and F by __viaddmax_s32, H by __vimax3_s32_relu;
 //   FOLD    - the score tracker folded over two rows: one max3 per two
 //             cells (rows 2i and 2i + 1 of a column);
@@ -169,13 +171,13 @@ struct Lanes<1, T> {
 // first row in the wall's frame (the segment's or the query's), jl row
 // Q-1 within the strip, jv the strip's last real row (flags mask the
 // rest). `put` stores the strip's last row at every column into scratch.
-// ragged_dp and multi_dp run the default Body, whose chain-specific
-// branches are the one-chain code; the probes pass another V, the chains'
-// offsets x and a tap. With STRIPS2 a thread's upper strip runs at steps
-// 2g .., its lower one a step later, and the lower one puts; each scores
-// one more column against x.pad (the upper after its last, the lower
-// before its first), which changes no SW score: such a column's H is
-// below the strip's best, and the lower strip's H stays 0.
+// ragged_dp runs the default Body and multi_dp Body<2 R>, whose
+// chain-specific branches are the one-chain code; the probes pass another
+// V, the chains' offsets x and a tap. With STRIPS2 a thread's upper strip
+// runs at steps 2g .., its lower one a step later, and the lower one puts;
+// each scores one more column against x.pad (the upper after its last,
+// the lower before its first), which changes no SW score: such a column's
+// H is below the strip's best, and the lower strip's H stays 0.
 template <int MODE, bool END, bool FLAGS, class V = Body<>,
           class Tap = NoTap>
 __device__ __forceinline__ StripOut sweep(
@@ -185,9 +187,10 @@ __device__ __forceinline__ StripOut sweep(
     int ge, Flags& fl, Chains x = {}, Tap tap = {}) {
   constexpr int RR = V::RR, C = V::CHAINS;
   static_assert(!V::STRIPS2 || C == 2, "two strips are two chains");
-  static_assert((C == 1 && RR == R && !V::DPX && !V::FOLD && !V::NOPROF) ||
+  static_assert((C == 1 && (RR == R || (RR == 2 * R && !FLAGS)) &&
+                 !V::DPX && !V::FOLD && !V::NOPROF) ||
                     (MODE == MODE_SW && !END && !FLAGS),
-                "the probes' bodies are SW score-only");
+                "the probes' bodies are SW score-only; flag rows need R");
   static_assert(C == 1 || (!V::DPX && !V::FOLD), "DPX and FOLD: one chain");
   using I = typename Lanes<C>::type;  // a value of every chain
   constexpr bool WALL = MODE == MODE_NW || MODE == MODE_HW;

@@ -24,8 +24,10 @@ is the counterpart of `build_pallas_score_fn_raw` (:732-821): one query
 against G dense [T, B] blocks, laid out as a stream and scored by ragged_dp.
 
 Both kernels walk a lane's query strips with a group of G threads
-(csrc/strip_group.cuh); `plan_launch` picks G per block and lays the whole
-database out as one launch, longest block first (see its docstring).
+(csrc/strip_group.cuh), ragged_dp's strips STRIP_ROWS (16) rows high and
+multi_dp's MULTI_STRIP_ROWS (32); `plan_launch` picks G per block and lays
+the whole database out as one launch, longest block first (see its
+docstring).
 
 `ragged_score`, `ragged_panel_score`, `multi_score` and `grouped_score` are
 the entry points: each launches its kernel for CUDA tensors and runs its
@@ -55,7 +57,8 @@ NEG = -(2**30)       # -inf sentinel of the int32 DP (== opal_tpu's NEG)
 PAD_NEG = -(2**20)   # profile value of letters outside the alphabet
 PROFILE_WIDTH = 32   # profile columns for alphabets up to 31 letters
 MAX_ALPHABET = 128   # letters are int8
-STRIP_ROWS = 16      # query rows per register strip (== R in the kernels)
+STRIP_ROWS = 16      # query rows per register strip (== R in ragged_dp)
+MULTI_STRIP_ROWS = 32  # multi_dp's strips (== MR in multi_dp.cu)
 MULTI_MAX_SEGS = 8   # queries per multi_dp launch (== MAX_SEGS in multi_dp.cu)
 # The launch plan (plan_launch). Scratch cells (one int2 boundary pair per
 # lane and column) one launch may use: 2 GiB; a database whose hand-offs
@@ -270,8 +273,8 @@ def build_profile(qprofile: np.ndarray) -> np.ndarray:
 
 def segment_rows(Q: int) -> int:
     """Rows a query of Q residues takes in a stacked profile: Q rounded up
-    to whole strips (opal_tpu's 16-quantized segment heights)."""
-    return -(-max(Q, 1) // STRIP_ROWS) * STRIP_ROWS
+    to whole multi_dp strips (opal_tpu's segments are 16-quantized)."""
+    return -(-max(Q, 1) // MULTI_STRIP_ROWS) * MULTI_STRIP_ROWS
 
 
 def prepare_profile_multi(qprofiles):
@@ -553,8 +556,8 @@ def multi_score(profile: torch.Tensor, seg_qs, stream: Stream, mode: int,
             profile.shape[1], n_seg, c_qs, int(mode), int(track_end),
             int(go), int(ge), cu_stream)
 
-    _run_plan("multi_dp", launch, stream, profile.shape[0] // STRIP_ROWS,
-              False, events=events)
+    _run_plan("multi_dp", launch, stream,
+              profile.shape[0] // MULTI_STRIP_ROWS, False, events=events)
     return out
 
 
@@ -764,7 +767,9 @@ def _lib(name):
                 "ragged_dp_sw_attrs": [ci] * 2 + [ctypes.POINTER(ci)]}
     else:  # multi_dp: 9 pointers, n_jobs, max_g, B, W, n_seg, seg_q, ...
         sigs = {"multi_dp_launch": [vp] * 9 + [ci] * 5
-                + [ctypes.POINTER(ci)] + [ci] * 4 + [vp]}
+                + [ctypes.POINTER(ci)] + [ci] * 4 + [vp],
+                # mode, track_end, max_g, W, out[3]
+                "multi_dp_attrs": [ci] * 4 + [ctypes.POINTER(ci)]}
     for fname, args in sigs.items():
         fn = getattr(lib, fname)
         fn.argtypes = args

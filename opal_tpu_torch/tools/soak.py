@@ -10,8 +10,8 @@ random problem and checks the port's search against opal_tpu_torch.oracle
   (backend.UPPER_BOUND: Q (M + ge) just under 2^31, so scores reach past
   2^30);
 - a gap pair: go >= ge, go == ge, ge > go, or 0/0;
-- a query length from a pool at the strip (16 rows) and strip-group (8
-  strips) edges, 1 to 300 residues;
+- a query length from a pool at the strip (16 rows; multi_dp's 32) and
+  strip-group (8 strips) edges, 1 to 300 residues;
 - a database of 10..100 sequences mixing block-edge lengths (1, 2, 3, 4,
   63..65, 127..129) with random ones up to 260, so blocks hold lanes of
   very different lengths;
@@ -52,7 +52,7 @@ from ..constants import (
 from ..oracle import search_oracle
 
 MODES = (MODE_NW, MODE_HW, MODE_OV, MODE_SW)
-Q_POOL = (1, 2, 15, 16, 17, 64, 110, 127, 128, 129, 300)
+Q_POOL = (1, 2, 15, 16, 17, 31, 32, 33, 64, 110, 127, 128, 129, 300)
 EDGE_LENS = (1, 2, 3, 4, 63, 64, 65, 127, 128, 129)
 
 

@@ -204,8 +204,11 @@ def _multi_profile(matrix, seg_qs, rng, device):
     return torch.from_numpy(prof).to(device), qs
 
 
-@pytest.mark.parametrize("segs", [[1, 37], [16, 17, 110],
-                                  [3, 60, 16, 90, 33, 2, 20, 47]])
+@pytest.mark.parametrize("segs", [
+    [1, 37], [16, 17, 110], [3, 60, 16, 90, 33, 2, 20, 47],
+    [1, 33, 31, 2, 64],  # strips of 32 rows that are mostly padding
+    [300, 290, 310, 305, 295, 280, 320, 301],  # several passes, scratch
+])
 @pytest.mark.parametrize("go,ge", [(3, 1), (2, 2), (1, 3)])
 @pytest.mark.parametrize("x", [0, 1])
 @pytest.mark.parametrize("mode", [0, 1, 2, 3])
@@ -213,7 +216,10 @@ def test_multi_kernel_matches_plain(cuda, mode, x, go, ge, segs):
     matrix = ScoreMatrix.blosum50().matrix
     rng = np.random.default_rng(mode + 10 * x)
     profile, seg_qs = _multi_profile(matrix, segs, rng, cuda)
-    stream = _stream(len(segs), 300, 200, 96, 24, cuda)
+    # the plain version's row loop (ge > go) costs rows x columns: the tall
+    # stack runs on shorter targets
+    stream = _stream(len(segs), 300, 200 if sum(segs) < 1000 else 64, 96,
+                     24, cuda)
     launches = kernels.LAUNCHES["multi_dp"]
     got = kernels.multi_score(profile, seg_qs, stream, mode, x, go, ge)
     assert kernels.LAUNCHES["multi_dp"] > launches
@@ -224,7 +230,9 @@ def test_multi_kernel_matches_plain(cuda, mode, x, go, ge, segs):
 
 def test_multi_waves_match_one_launch(cuda, monkeypatch):
     matrix = ScoreMatrix.blosum50().matrix
-    profile, seg_qs = _multi_profile(matrix, [40, 7, 130],
+    # 13 strips: more than a pass of 8, so every block hands rows on
+    # through scratch and the scratch budget cuts the launch into waves
+    profile, seg_qs = _multi_profile(matrix, [40, 7, 290],
                                      np.random.default_rng(3), cuda)
     stream = _stream(6, 1000, 700, 64, 24, cuda)
     whole = kernels.multi_score(profile, seg_qs, stream, MODE_OV, 1, 3, 1)

@@ -1,6 +1,7 @@
 """The port stands alone: opal_tpu_torch (its CLI, server, cascade,
-traceback and measurement tools included), its benchmark (benchmark/) and
-chip_smoke.py import nothing of JAX or opal_tpu, importing the package
+traceback and measurement tools included), its benchmark (benchmark/),
+chip_smoke.py and the A/B scripts beside it (ab_main_path.py, ab_multi.py)
+import nothing of JAX or opal_tpu, importing the package
 builds and touches nothing, and the default (CUDA) entry points raise
 instead of running on the CPU when CUDA is absent."""
 import ast
@@ -18,7 +19,8 @@ FORBIDDEN = {"jax", "jaxlib", "opal_tpu"}
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, f)
+           for f in ("chip_smoke.py", "ab_main_path.py", "ab_multi.py")]
     for top in ("opal_tpu_torch", "benchmark"):
         for dirpath, _, files in os.walk(os.path.join(ROOT, top)):
             out += [os.path.join(dirpath, f) for f in files

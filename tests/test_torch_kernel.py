@@ -317,12 +317,13 @@ def _strip_cells(prof, letters, lens, mode, go, ge):
     return out
 
 
-def _strip_outs(cells, lens, l, s, Q, last, mode, track_end):
-    """What strip s (rows 16 s .. 16 s + 15 of its frame) of lane l leaves
+def _strip_outs(cells, lens, l, s, Q, last, mode, track_end,
+                R=kernels.STRIP_ROWS):
+    """What strip s (rows R s .. R s + R - 1 of its frame) of lane l leaves
     for the merge (strip_group.cuh's StripOut)."""
     n = int(lens[l])
-    r0 = s * kernels.STRIP_ROWS
-    H = cells["H"][:n, r0:r0 + kernels.STRIP_ROWS, l]
+    r0 = s * R
+    H = cells["H"][:n, r0:r0 + R, l]
     o = dict(sb=0, st=0, sr=0, cm=kernels.NEG, cr=0, lr=kernels.NEG, lr_c=0,
              plrm=kernels.NEG, nw=kernels.NEG)
     if n == 0:
@@ -332,7 +333,7 @@ def _strip_outs(cells, lens, l, s, Q, last, mode, track_end):
         if m > 0:  # strict first improvement, columns outer, rows inner
             t = int(np.flatnonzero(H.max(axis=1) == m)[0])
             o.update(sb=m, st=t, sr=r0 + int(np.flatnonzero(H[t] == m)[0]))
-    real = min(kernels.STRIP_ROWS, Q - r0) if last else kernels.STRIP_ROWS
+    real = min(R, Q - r0) if last else R
     col = H[n - 1, :real]
     o.update(cm=int(col.max()), cr=r0 + int(np.argmax(col)))
     if last:
@@ -467,7 +468,8 @@ def test_group_merge_transcription_matches_multi_plain(mode, x):
     at every G."""
     go, ge = 2, 1
     query, db, matrix = _planted(40 + mode, 78)
-    seg_q = (5, 40, 16, 17)  # segments of 1, 3, 1, 2 strips
+    seg_q = (5, 40, 16, 17)  # segments of 1, 2, 1, 1 strips
+    R = kernels.MULTI_STRIP_ROWS
     cuts = np.cumsum((0,) + seg_q)
     queries = [query[cuts[i]:cuts[i + 1]] for i in range(len(seg_q))]
     blocks = batching.plan_blocks(db, B)
@@ -487,7 +489,7 @@ def test_group_merge_transcription_matches_multi_plain(mode, x):
         segs.append(_strip_cells(prof[off:off + rows_i].astype(np.int64),
                                  letters[:int(lens.max())], lens, mode, go,
                                  ge))
-        strip_of += [(i, s) for s in range(rows_i // 16)]
+        strip_of += [(i, s) for s in range(rows_i // R)]
         off += rows_i
     n_seg = len(seg_q)
     for G in (1, 2, 4, 8):
@@ -501,9 +503,9 @@ def test_group_merge_transcription_matches_multi_plain(mode, x):
                     if k >= len(strip_of):
                         break
                     i, s = strip_of[k]
-                    ns_i = kernels.segment_rows(seg_q[i]) // 16
+                    ns_i = kernels.segment_rows(seg_q[i]) // R
                     carry.append(_strip_outs(segs[i], lens, l, s, seg_q[i],
-                                             s == ns_i - 1, mode, x))
+                                             s == ns_i - 1, mode, x, R))
                     if s == ns_i - 1:
                         done[i] = _merge_group(carry, 1)
                         carry = []

@@ -82,6 +82,7 @@ def _jax_stream(db):
     ([1, 16, 17, 40], 3, 1),
     ([3, 20, 16, 33, 2, 40, 9, 17], 3, 1),
     ([3, 20, 16, 33, 2, 40, 9, 17], 2, 2),
+    ([1, 31, 32, 33, 64], 3, 1),  # at and around multi_dp's strip height
 ])
 @pytest.mark.parametrize("x", XS)
 @pytest.mark.parametrize("mode", MODES)
@@ -103,9 +104,20 @@ def test_plain_matches_pallas_multi_interpret(mode, x, segs, go, ge):
 
     profile, my_qs = kernels.prepare_profile_multi(qprofiles)
     assert my_qs == tuple(seg_qs)
-    # the stacked operand is opal_tpu's, less its P + Ge offset
-    np.testing.assert_array_equal(
-        profile, np.where(qp == pk.PAD_NEG, pk.PAD_NEG, qp - ge))
+    # segment by segment, the stacked operand is opal_tpu's (16-quantized),
+    # less its P + Ge offset, then PAD_NEG rows up to whole multi_dp strips
+    theirs = np.where(qp == pk.PAD_NEG, pk.PAD_NEG, qp - ge)
+    want_rows = np.full_like(profile, pk.PAD_NEG)
+    off = their_off = 0
+    for q, qpad in zip(seg_qs, seg_qpads):
+        rows = kernels.segment_rows(q)
+        assert rows % kernels.MULTI_STRIP_ROWS == 0
+        assert rows - kernels.MULTI_STRIP_ROWS < q <= qpad <= rows
+        want_rows[off:off + qpad] = theirs[their_off:their_off + qpad]
+        off += rows
+        their_off += qpad
+    assert off == len(profile) and their_off == len(theirs)
+    np.testing.assert_array_equal(profile, want_rows)
     calls = kernels.PLAIN_CALLS["multi_score_plain"]
     got = kernels.multi_score(
         torch.from_numpy(profile), my_qs,
@@ -244,7 +256,7 @@ def test_multi_wrapper_checks_and_devices():
     profile, seg_qs = kernels.prepare_profile_multi(
         [matrix[rng.integers(0, 20, size=q)].T for q in (3, 17)])
     profile = torch.from_numpy(profile)
-    assert profile.shape == (16 + 32, kernels.PROFILE_WIDTH)
+    assert profile.shape == (32 + 32, kernels.PROFILE_WIDTH)
     launches = dict(kernels.LAUNCHES)
     out = kernels.multi_score(profile, seg_qs, ddb.stream, MODE_SW, 1, 3, 1)
     assert kernels.LAUNCHES == launches
